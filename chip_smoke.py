@@ -14,11 +14,20 @@ non-zero and prints no result):
   reference  the online pipeline on a small synthetic scene with the tiny-pe
              card, on the card (kernels) and on the CPU (plain versions):
              equal point map and instances, descriptors within cosine 1e-4
-  slice      the main path: OVOSemMap on a seeded 680x1200 synthetic scene
-             with Replica intrinsics, precomputed-style masks (up to 96 per
-             keyframe) and TextRegion on PE-Core-L14-336 at full width with
-             random weights, a 2^21-point map; launch counts of every kernel
-  kernels    the kernels with their launch counts on the slice
+  reference_amg  the SAM2 automatic-mask program on the hiera_test card at
+             256^2 in f32, on the card (kernels) and on the CPU (plain
+             versions): equal valid sets, seg maps equal but for < 0.1% of
+             pixels (logits within rounding of 0), and the decoder's logits
+             for every grid prompt within 2e-5 of the largest
+  slice      OVOSemMap on a seeded 680x1200 synthetic scene with Replica
+             intrinsics, precomputed-style masks (up to 96 per keyframe) and
+             TextRegion on PE-Core-L14-336 at full width with random
+             weights, a 2^21-point map; launch counts of every kernel
+  amg_slice  the main path: the same run with live masks from the SAM2
+             Hiera-L automatic mask generator at 1024^2 (built from the
+             config, seeded random bf16 weights, gates at 0); launch counts
+             per keyframe, host syncs in the frame loop (none allowed)
+  kernels    the kernels with their launch counts on the amg_slice
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -76,6 +85,28 @@ B5_SOURCE = "ovo_tpu_torch/csrc/rope_packed_attention.cu"
 B6_SOURCE = "ovo_tpu_torch/csrc/masked_pool.cu"
 B5_REPLACES = "ovo_tpu/ops/attention.py:326"
 B6_REPLACES = "ovo_tpu/ops/masked_pool.py:61"
+# the AMG slice's kernels: (launch-count name, source, TPU kernel)
+AMG_KERNELS = {
+    "flash_attention": ("ovo_tpu_torch/csrc/flash_attention.cu",
+                        "ovo_tpu/ops/attention.py:155"),
+    "windowed_attention": ("ovo_tpu_torch/csrc/windowed_attention.cu",
+                           "ovo_tpu/ops/attention.py:395"),
+    "cross_t2i": ("ovo_tpu_torch/csrc/cross_t2i.cu",
+                  "ovo_tpu/ops/attention.py:1120"),
+    "cross_i2t_tail": ("ovo_tpu_torch/csrc/cross_i2t_tail.cu",
+                       "ovo_tpu/ops/attention.py:1075"),
+}
+# launches per segmented keyframe of Hiera-L + the two-way decoder: 3 global
+# blocks; 45 window blocks + 2 token self-attentions; t2i in 2 layers + the
+# final attention; i2t + norm4 in 2 layers
+AMG_LAUNCHES_PER_KF = {"flash_attention": 3, "windowed_attention": 47,
+                       "cross_t2i": 3, "cross_i2t_tail": 2}
+# the live mask source of the main path: configs/ovo.yaml's sam section
+# (hiera_l, SAM 2.1, 16x16 points) with the random-weight gates at 0
+SAM_LIVE = {"precomputed": False, "sam_encoder": "hiera_l",
+            "sam_version": "2.1", "points_per_side": 16, "image_size": 1024,
+            "pred_iou_th": 0.0, "stability_score_th": 0.0,
+            "nms_score_th": 0.0, "gate_prompts": 128}
 
 
 def emit(phase: str, **kw) -> None:
@@ -211,6 +242,159 @@ def check_b6(dev, dtype, peaks, tol):
                 bytes=nbytes, flops=flops)
 
 
+def _bound(nbytes, flops, dtype, peaks):
+    rate = peaks[0] if dtype == torch.bfloat16 else peaks[1]
+    t_bytes, t_ops = nbytes / peaks[2] * 1e3, flops / rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _max_err(got, ref, what):
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{what} produced non-finite values")
+    return float((got.float() - ref.float()).abs().max())
+
+
+def _report(name, dtype, err, tol, kernel, plain, library, nbytes, flops,
+            peaks, **extra):
+    """Check the error, then time kernel, plain version and library call."""
+    if err > tol:
+        raise AssertionError(f"{name} {dtype}: max_abs_err {err} > {tol}")
+    bound_ms, bound_by = _bound(nbytes, flops, dtype, peaks)
+    return dict(name=name, dtype=str(dtype)[6:], max_abs_err=err, tol=tol,
+                kernel_ms=time_ms(kernel), plain_ms=time_ms(plain),
+                library_ms=time_ms(library), bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, flops=flops, **extra)
+
+
+def _heads_of_packed(gen, n, L, heads, hd, dev, dtype):
+    """q, k, v as the Hiera trunk hands them over: head-split strided views
+    of one packed (n, L, 3, heads, hd) projection."""
+    qkv = torch.randn((n, L, 3, heads, hd), generator=gen,
+                      device=dev).to(dtype)
+    return qkv, [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+def check_b1(dev, dtype, peaks, tol):
+    from ovo_tpu_torch.ops.attention import (flash_attention,
+                                             flash_attention_plain)
+
+    heads, L, hd = 8, 4096, 72          # Hiera-L global blocks at 1024^2
+    gen = torch.Generator(device=dev).manual_seed(1)
+    qkv, (q, k, v) = _heads_of_packed(gen, 1, L, heads, hd, dev, dtype)
+    err = _max_err(flash_attention(q, k, v), flash_attention_plain(q, k, v),
+                   "B1")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return _report("flash_attention", dtype, err, tol,
+                   lambda: flash_attention(q, k, v),
+                   lambda: flash_attention_plain(q, k, v),
+                   lambda: sdpa(q, k, v), storage_bytes(qkv) + q.numel()
+                   * q.element_size(), 4.0 * heads * L * L * hd, peaks,
+                   shape=[1, heads, L, hd])
+
+
+# B2 at the AMG shapes: (windows, heads, lq, lk, hd)
+B2_SHAPES = {"stage1": (1024, 2, 64, 64, 72), "stage3": (25, 8, 196, 196, 72),
+             "decoder": (256, 8, 8, 8, 32)}
+
+
+def check_b2(dev, dtype, peaks, tol, which):
+    from ovo_tpu_torch.ops.attention import (windowed_attention_plain,
+                                             windowed_fused_attention)
+
+    n, heads, lq, lk, hd = B2_SHAPES[which]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    qkv, (q, k, v) = _heads_of_packed(gen, n, lk, heads, hd, dev, dtype)
+    q = q[:, :, :lq]
+    err = _max_err(windowed_fused_attention(q, k, v),
+                   windowed_attention_plain(q, k, v), "B2")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return _report("windowed_attention", dtype, err, tol,
+                   lambda: windowed_fused_attention(q, k, v),
+                   lambda: windowed_attention_plain(q, k, v),
+                   lambda: sdpa(q, k, v),
+                   storage_bytes(qkv) + q.numel() * q.element_size(),
+                   4.0 * n * heads * lq * lk * hd, peaks, case=which,
+                   shape=[n * heads, lq, lk, hd])
+
+
+def _cross_inputs(dev, dtype, Bk, B=256, T=8, L=4096, D=128, dk=256):
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape, std=1.0, dt=dtype):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dt)
+
+    return dict(q=rnd(B, T, D), keys=rnd(Bk, L, dk),
+                wk=rnd(dk, D, std=dk ** -0.5), wv=rnd(dk, D, std=dk ** -0.5),
+                pe=rnd(1, L, D), bv=rnd(D, dt=torch.float32),
+                vt=rnd(B, T, D), wout=rnd(D, dk, std=D ** -0.5),
+                bout=rnd(dk, dt=torch.float32),
+                g=rnd(dk, std=0.1, dt=torch.float32) + 1.0,
+                b=rnd(dk, dt=torch.float32))
+
+
+def check_b3(dev, dtype, peaks, tol, Bk):
+    from ovo_tpu_torch.ops.attention import (cross_t2i_from_keys,
+                                             cross_t2i_from_keys_plain)
+
+    heads, dh = 8, 16
+    x = _cross_inputs(dev, dtype, Bk)
+    (B, T, D), (_, L, dk) = x["q"].shape, x["keys"].shape
+    args = (x["q"], x["keys"], x["wk"], x["wv"], x["pe"], x["bv"], heads)
+    err = _max_err(cross_t2i_from_keys(*args),
+                   cross_t2i_from_keys_plain(*args), "B3")
+    # the library yardstick: SDPA on the pre-projected per-head operands
+
+    def split(t, n):
+        return t.reshape(t.shape[0], n, heads, dh).transpose(1, 2).expand(
+            B, heads, n, dh)
+
+    qh = split(x["q"], T)
+    kk = split(x["keys"] @ x["wk"] + x["pe"], L)
+    vv = split(x["keys"] @ x["wv"] + x["bv"].to(dtype), L)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flops = 2.0 * B * heads * T * (L * (2 * dk + dh) + 2 * dk * dh)
+    nbytes = (storage_bytes(*(x[k] for k in ("q", "keys", "wk", "wv", "pe",
+                                             "bv")))
+              + B * T * D * x["q"].element_size())
+    return _report("cross_t2i", dtype, err, tol,
+                   lambda: cross_t2i_from_keys(*args),
+                   lambda: cross_t2i_from_keys_plain(*args),
+                   lambda: sdpa(qh, kk, vv), nbytes, flops, peaks,
+                   keys_batch=Bk, shape=[B, T, L, dk, D])
+
+
+def check_b4(dev, dtype, peaks, tol, Bk):
+    from ovo_tpu_torch.ops.attention import (cross_i2t_tail_from_keys,
+                                             cross_i2t_tail_from_keys_plain)
+
+    heads, dh = 8, 16
+    x = _cross_inputs(dev, dtype, Bk)
+    (B, T, D), (_, L, dk) = x["q"].shape, x["keys"].shape
+    args = (x["keys"], x["wk"], x["pe"], x["q"], x["vt"], x["wout"],
+            x["bout"], x["g"], x["b"], heads)
+    err = _max_err(cross_i2t_tail_from_keys(*args),
+                   cross_i2t_tail_from_keys_plain(*args), "B4")
+
+    def split(t, n):
+        return t.reshape(t.shape[0], n, heads, dh).transpose(1, 2).expand(
+            B, heads, n, dh)
+
+    qq = split(x["keys"] @ x["wk"] + x["pe"], L)
+    kt, vt = split(x["q"], T), split(x["vt"], T)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flops = (2.0 * B * L * (heads * T * (dk + 2 * dh) + D * dk + 4 * dk)
+             + 2.0 * B * heads * T * dk * dh)
+    nbytes = (storage_bytes(*(x[k] for k in ("keys", "wk", "pe", "q", "vt",
+                                             "wout", "bout", "g", "b")))
+              + B * L * dk * x["keys"].element_size())
+    return _report("cross_i2t_tail", dtype, err, tol,
+                   lambda: cross_i2t_tail_from_keys(*args),
+                   lambda: cross_i2t_tail_from_keys_plain(*args),
+                   lambda: sdpa(qq, kt, vt), nbytes, flops, peaks,
+                   keys_batch=Bk, shape=[B, T, L, dk, D])
+
+
 # ---------------------------------------------------------------------------
 # synthetic scene: a textured height-field wall, everything a function of
 # world coordinates, camera translating (GT poses)
@@ -323,33 +507,115 @@ def run_reference(dev) -> dict:
                 max_cos_dev=worst)
 
 
-def run_slice(dev, profile_path=None) -> dict:
+def run_reference_amg(dev) -> dict:
+    """The SAM2 AMG program (hiera_test, 256^2, f32, gates at 0) on the
+    card (kernels B2-B4; its global block is short enough for B2) and on
+    the CPU (plain versions): equal valid sets, seg maps and binary maps
+    equal but for < 0.1% of pixels (a logit within rounding of 0 flips).
+    The NMS stages leave few valid masks on random weights, so the
+    decoder's logits for all grid prompts are compared as well."""
+    from ovo_tpu_torch.models.sam.amg import AutomaticMaskSource
+    from ovo_tpu_torch.models.sam.model import SAMModel
+
+    cpu = SAMModel.random_init("hiera_test", 256, seed=7, device="cpu",
+                               compute_dtype="float32")
+    card = SAMModel(cpu.cfg, copy.deepcopy(cpu.params), dev)
+    kw = dict(points_per_side=8, max_masks=32, candidates=64,
+              gate_prompts=32, pred_iou_thresh=0.0, stability_thresh=0.0,
+              nms_score_th=0.0)
+    rng = np.random.default_rng(7)
+    image = (rng.random((180, 320, 3)) * 255).astype(np.uint8)
+    out, logits = {}, {}
+    for name, model in (("cuda", card), ("cpu", cpu)):
+        source = AutomaticMaskSource(model, **kw)
+        seg, bmaps, valid = source.get_masks(image)
+        out[name] = (seg.cpu().numpy(), bmaps.cpu().numpy(),
+                     valid.cpu().numpy())
+        # the decoder's logits for every grid prompt: B2-B4 in context
+        x = model.preprocess(torch.from_numpy(image).to(model.device) / 255.0)
+        embed, high_res = model.encode_image(x)
+        logits[name] = model.decode_grid(embed, high_res, source.points,
+                                         mask_channels=(1, 2, 3))["masks"]
+    (s1, b1, v1), (s2, b2, v2) = out["cuda"], out["cpu"]
+    logit_scale = float(logits["cpu"].abs().max())
+    logit_err = float((logits["cuda"].cpu() - logits["cpu"]).abs().max())
+    seg_diff, bmap_diff = float((s1 != s2).mean()), float((b1 != b2).mean())
+    if not np.array_equal(v1, v2) or v1.sum() < 1:
+        raise AssertionError(f"reference_amg: valid sets differ or empty "
+                             f"({v1.sum()} / {v2.sum()})")
+    if seg_diff >= 1e-3 or bmap_diff >= 1e-3:
+        raise AssertionError(f"reference_amg: seg maps differ on "
+                             f"{seg_diff:.2e} of pixels, masks {bmap_diff:.2e}")
+    # f32 sums in another order through the trunk and the decoder: 1.6e-6
+    # of the largest logit measured on an H100; the limit is 2e-5 of it
+    if logit_err > 2e-5 * max(1.0, logit_scale):
+        raise AssertionError(f"reference_amg: decoder logits differ by "
+                             f"{logit_err} (largest {logit_scale})")
+    return dict(valid_masks=int(v1.sum()), seg_pixels_differing=seg_diff,
+                mask_pixels_differing=bmap_diff, logit_max_abs_err=logit_err,
+                logit_max_abs=logit_scale)
+
+
+class RecordingMaskSource:
+    """Passes ``get_masks`` through and keeps each keyframe's valid-mask
+    count as a device tensor (read after the run: no host sync)."""
+
+    def __init__(self, source):
+        self.source = source
+        self.valid_counts = []
+
+    def get_masks(self, image, frame_id=None):
+        seg, bmaps, valid = self.source.get_masks(image, frame_id)
+        self.valid_counts.append(valid.sum())
+        return seg, bmaps, valid
+
+
+def run_slice(dev, profile_path=None, live=False, frames=60) -> dict:
+    """OVOSemMap on the 680x1200 wall scene, segmenting every 10th frame:
+    precomputed-style masks from the scene, or (``live``) the SAM2 Hiera-L
+    automatic masks built from the config."""
     from ovo_tpu_torch.data.masks import CallableMaskSource
     from ovo_tpu_torch.mapping.pipeline import OVOSemMap
     from ovo_tpu_torch.ops import cuda_build
 
+    tag = "amg_slice" if live else "slice"
     cam = REPLICA_CONFIG["cam"]
     t0 = time.time()
-    scene = WallScene(60, cam["H"], cam["W"], cam["fx"], cam["fy"],
+    scene = WallScene(frames, cam["H"], cam["W"], cam["fx"], cam["fy"],
                       cam["cx"], cam["cy"], seed=0)
-    masks = {fid: scene.masks(fid) for fid in range(0, len(scene),
-                                                    10)}
+    masks = {fid: scene.masks(fid) for fid in range(0, len(scene), 10)}
     t_scene = time.time() - t0
     with tempfile.TemporaryDirectory() as tmp:
         cfg = json.loads(json.dumps(REPLICA_CONFIG))
         # the embedder is built from the config (PE-Core-L14-336, seeded
-        # random weights, on the card); masks come from the scene
+        # random weights, on the card); so is the live mask source
+        if live:
+            cfg["semantic"]["sam"] = dict(SAM_LIVE)
+            source = None
+        else:
+            source = CallableMaskSource(lambda img, fid: masks[fid], 96, dev)
         sem_map = OVOSemMap(cfg, tmp, dataset=scene, device=dev,
-                            mask_source=CallableMaskSource(
-                                lambda img, fid: masks[fid], 96, dev))
+                            mask_source=source)
+        recorder = RecordingMaskSource(sem_map.ovo.mask_source)
+        sem_map.ovo.mask_source = recorder
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         cuda_build.reset_launch_counts()
         prof = _profiler() if profile_path else None
         if prof is not None:
             prof.__enter__()
         t0 = time.time()
         # every synchronizing CUDA call in the run raises a warning, with
-        # the Python line that made it
+        # the Python line that made it; the frame loop ends where the
+        # deferred-descriptor drain starts
+        loop_end = []
+        drain = sem_map.ovo.complete_semantic_info
+
+        def marked_drain():
+            loop_end.append(len(caught))
+            drain()
+
+        sem_map.ovo.complete_semantic_info = marked_drain
         torch.cuda.set_sync_debug_mode("warn")
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -359,29 +625,43 @@ def run_slice(dev, profile_path=None) -> dict:
         wall = time.time() - t0
         if prof is not None:
             prof.__exit__(None, None, None)
-        syncs = collections.Counter(
-            f"{w.filename.split('ovo_tpu_torch/')[-1]}:{w.lineno}"
-            for w in caught if "synchroniz" in str(w.message))
         counts = cuda_build.launch_counts()
+        sync_list = [f"{w.filename.split('ovo_tpu_torch/')[-1]}:{w.lineno}"
+                     for w in caught if "synchroniz" in str(w.message)]
+        loop_syncs = [f"{w.filename.split('ovo_tpu_torch/')[-1]}:{w.lineno}"
+                      for w in caught[:loop_end[0]]
+                      if "synchroniz" in str(w.message)]
     ovo = sem_map.ovo
     st = sem_map.slam_backbone.get_map()
     n_emb = len(ovo.kf_descriptors)
+    n_seg = len(recorder.valid_counts)
+    valid_counts = [int(c) for c in recorder.valid_counts]
     descs = torch.cat([d[k] for _, d, k in ovo.kf_descriptors.values()])
     norms = torch.linalg.vector_norm(descs, dim=-1)
     if not (torch.isfinite(descs).all()
             and (norms - 1).abs().max() <= 1e-3):
-        raise AssertionError("slice: descriptors not finite unit vectors")
+        raise AssertionError(f"{tag}: descriptors not finite unit vectors")
     fused = ovo.store.clip_feature[ovo.store.has_clip]
     if not torch.isfinite(fused).all() or len(fused) == 0:
-        raise AssertionError("slice: no finite fused descriptors")
+        raise AssertionError(f"{tag}: no finite fused descriptors")
+    if min(valid_counts, default=0) < 1:
+        raise AssertionError(f"{tag}: a keyframe without a valid mask: "
+                             f"{valid_counts}")
     depth_layers = len(ovo.embedder.model.visual.blocks)
-    expect = {"rope_packed_attention": depth_layers * n_emb,
-              "masked_pool": n_emb}
+    expect = {name: 0 for name in cuda_build.KERNELS}
+    expect.update(rope_packed_attention=depth_layers * n_emb,
+                  masked_pool=n_emb)
+    if live:
+        expect.update({k: v * n_seg for k, v in AMG_LAUNCHES_PER_KF.items()})
     if n_emb == 0 or counts != expect:
-        raise AssertionError(f"slice: launches {counts}, expected {expect}")
+        raise AssertionError(f"{tag}: launches {counts}, expected {expect}")
+    if loop_syncs:
+        raise AssertionError(f"{tag}: host syncs in the frame loop: "
+                             f"{collections.Counter(loop_syncs)}")
     extra = _profile_summary(prof, wall, profile_path) if prof else {}
     return dict(frames=len(scene), keyframes=ovo.kf_id,
-                embedded_keyframes=n_emb, seconds=wall,
+                segmented_keyframes=n_seg, embedded_keyframes=n_emb,
+                valid_masks_per_keyframe=valid_counts, seconds=wall,
                 keyframes_per_s=ovo.kf_id / wall,
                 scene_setup_s=t_scene, map_points=int(st.count),
                 map_capacity=st.capacity,
@@ -389,7 +669,8 @@ def run_slice(dev, profile_path=None) -> dict:
                 descriptor_norm_min=float(norms.min()),
                 descriptor_norm_max=float(norms.max()),
                 max_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-                host_syncs=sum(syncs.values()), host_sync_sites=dict(syncs),
+                host_syncs=len(sync_list), host_syncs_in_loop=len(loop_syncs),
+                host_sync_sites=dict(collections.Counter(sync_list)),
                 launches=counts, **extra)
 
 
@@ -434,9 +715,9 @@ def _profile_summary(prof, wall: float, path: str) -> dict:
 
 def main(argv) -> int:
     """No arguments: every phase. ``--profile PATH``: only gpu, build and
-    the slice three times: untraced, then with the card's activity traced
-    by torch.profiler (the busy share is read within that run, the kernel
-    table written to PATH), then untraced again."""
+    the amg_slice three times: untraced, then with the card's activity
+    traced by torch.profiler (the busy share is read within that run, the
+    kernel table written to PATH), then untraced again."""
     profile_path = argv[argv.index("--profile") + 1] \
         if "--profile" in argv else None
     if not torch.cuda.is_available():
@@ -466,9 +747,9 @@ def main(argv) -> int:
     if profile_path:
         # the first run carries the process's one-time costs; the traced
         # run's wall is read against the untraced run after it
-        emit("slice", **run_slice(dev))
-        emit("profile", **run_slice(dev, profile_path))
-        emit("slice", **run_slice(dev))
+        emit("amg_slice", **run_slice(dev, live=True))
+        emit("profile", **run_slice(dev, profile_path, live=True))
+        emit("amg_slice", **run_slice(dev, live=True))
         return 0
 
     # f32: 1e-4 (the online softmax reorders the sums). bf16: the plain
@@ -478,27 +759,50 @@ def main(argv) -> int:
     # ~0.5 (B5) and ~0.25 (B6) in magnitude, where one bf16 step is 2^-9 and
     # 2^-10. The limits are a few such steps: measured errors were 3.9e-3
     # (B5) and 9.8e-4 (B6) on an H100.
+    # B1-B4 in bf16 (tests/test_torch_cuda_kernels.py says the same): B1 and
+    # its plain version both keep the weights in f32 and round once, means
+    # of N(0,1) values below 1: 1e-2. B2 rounds the normalized weights on
+    # both sides, so a weight on a rounding edge may flip a step: 1e-2. B3
+    # keeps p in f32 where the plain version rounds it, and its output adds
+    # an N(0,1) bias (|out| < ~4, one step 2^-6 at the top): 3e-2. B4's
+    # output is a LayerNorm of order-1 values up to ~4 after two more
+    # roundings (attn, y): 6e-2.
     results = {}
-    for check, tag, bf16_tol in ((check_b5, "b5", 1e-2),
-                                 (check_b6, "b6", 4e-3)):
+    checks = [(check_b5, "b5", 1e-2, {}), (check_b6, "b6", 4e-3, {}),
+              (check_b1, "b1", 1e-2, {})]
+    checks += [(check_b2, f"b2_{w}", 1e-2, {"which": w}) for w in B2_SHAPES]
+    checks += [(check_b3, f"b3_keys{bk}", 3e-2, {"Bk": bk}) for bk in (1, 256)]
+    checks += [(check_b4, f"b4_keys{bk}", 6e-2, {"Bk": bk})
+               for bk in (1, 256)]
+    for check, tag, bf16_tol, kw in checks:
         for dtype, tol in ((torch.bfloat16, bf16_tol), (torch.float32, 1e-4)):
-            r = check(dev, dtype, peaks, tol)
+            r = check(dev, dtype, peaks, tol, **kw)
             emit("kernel", **r)
             results[(tag, r["dtype"])] = r
+        torch.cuda.empty_cache()
 
     emit("reference", **run_reference(dev))
-    sl = run_slice(dev)
-    emit("slice", **sl)
-    emit("kernels", launches=sl["launches"])
+    emit("reference_amg", **run_reference_amg(dev))
+    emit("slice", **run_slice(dev))
+    amg = run_slice(dev, live=True)
+    emit("amg_slice", **amg)
+    emit("kernels", launches=amg["launches"])
 
     rows = []
-    for tag, kname, src, rep in (("b5", "rope_packed_attention", B5_SOURCE,
-                                  B5_REPLACES),
-                                 ("b6", "masked_pool", B6_SOURCE,
-                                  B6_REPLACES)):
+    # per kernel, the main path's heaviest shape: B2 the stage-3 windows,
+    # B3 / B4 the per-prompt keys of the second layer
+    for tag, kname, src, rep in (
+            ("b5", "rope_packed_attention", B5_SOURCE, B5_REPLACES),
+            ("b6", "masked_pool", B6_SOURCE, B6_REPLACES),
+            ("b1", "flash_attention", *AMG_KERNELS["flash_attention"]),
+            ("b2_stage3", "windowed_attention",
+             *AMG_KERNELS["windowed_attention"]),
+            ("b3_keys256", "cross_t2i", *AMG_KERNELS["cross_t2i"]),
+            ("b4_keys256", "cross_i2t_tail",
+             *AMG_KERNELS["cross_i2t_tail"])):
         r = results[(tag, "bfloat16")]
         rows.append({"name": kname, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": sl["launches"][kname],
+                     "replaces": rep, "launches": amg["launches"][kname],
                      "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

@@ -1,7 +1,7 @@
 """Backend factories: mask sources and embedders from the ``semantic``
-config section (port of ``ovo_tpu/factory.py``). This slice serves
-precomputed masks (``sam.precomputed: true``) and the TextRegion embedder;
-the live SAM2 mask generator comes with the AMG slice."""
+config section (port of ``ovo_tpu/factory.py``): precomputed masks
+(``sam.precomputed: true``) or the live SAM2 automatic mask generator, and
+the TextRegion embedder."""
 from __future__ import annotations
 
 import os
@@ -13,8 +13,10 @@ def build_mask_source(semantic_cfg: Dict[str, Any],
     sam_cfg = semantic_cfg.get("sam", {})
     max_masks = int(semantic_cfg.get("capacity", {}).get("n_masks", 96))
     if not sam_cfg.get("precomputed", False):
-        raise NotImplementedError(
-            "live SAM2 masks are not ported yet; set sam.precomputed: true")
+        from .models.sam import build_sam_mask_source
+
+        return build_sam_mask_source(sam_cfg, max_masks=max_masks,
+                                     device=device)
     if not scene_name:
         raise ValueError("precomputed masks require a scene_name")
     from .data.masks import PrecomputedMaskSource

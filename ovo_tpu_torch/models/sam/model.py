@@ -1,0 +1,145 @@
+"""SAM2 segmentation model: Hiera trunk + FPN neck + prompt encoder + mask
+decoder, assembled for batched grid-prompted inference (port of
+``ovo_tpu/models/sam/model.py``, the ``sam2`` family).
+
+SAM1 (ViT-det encoders, ``encoder.startswith("vit")``) is not ported yet and
+raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ... import resolve_device
+from ...ops.resize import resize_channels_last
+from .decoder import decode_masks, init_mask_decoder
+from .hiera import HIERA_CONFIGS, HieraConfig, hiera_forward, init_hiera
+from .neck import conv1x1, init_neck, neck_forward
+from .params import Init, ParamTree
+from .prompt import encode_points, init_prompt_encoder, pe_grid
+
+SAM_MEAN = (0.485, 0.456, 0.406)
+SAM_STD = (0.229, 0.224, 0.225)
+
+
+@dataclasses.dataclass(frozen=True)
+class SAMConfig:
+    encoder: str = "hiera_l"
+    image_size: int = 1024
+    d_model: int = 256
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def family(self) -> str:
+        """"sam1" for ViT-det encoders, "sam2" for Hiera."""
+        return "sam1" if self.encoder.startswith("vit") else "sam2"
+
+    @property
+    def hiera(self) -> HieraConfig:
+        return HIERA_CONFIGS[self.encoder]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return (torch.bfloat16 if self.compute_dtype == "bfloat16"
+                else torch.float32)
+
+
+def _sam2(cfg: SAMConfig) -> SAMConfig:
+    if cfg.family != "sam2":
+        raise NotImplementedError(
+            f"SAM1 / ViT-det encoder {cfg.encoder!r} is not ported yet")
+    return cfg
+
+
+def init_sam(cfg: SAMConfig, gen: Optional[torch.Generator],
+             device) -> Dict[str, Any]:
+    """The SAM2 param tree of the JAX package's ``SAMModel.random_init``:
+    random leaves from ``gen``, or zeros without it."""
+    init = Init(gen, device)
+    hcfg = cfg.hiera
+    channels = tuple(int(hcfg.embed_dim * hcfg.dim_mul ** i)
+                     for i in range(4))
+    return {"trunk": init_hiera(init, hcfg),
+            "neck": init_neck(init, channels, cfg.d_model),
+            "prompt": init_prompt_encoder(init, cfg.d_model),
+            "decoder": init_mask_decoder(init, cfg.d_model)}
+
+
+class SAMModel:
+    def __init__(self, cfg: SAMConfig, params, device="cuda"):
+        self.cfg = _sam2(cfg)
+        self.device = resolve_device(device)
+        if not isinstance(params, ParamTree):
+            params = ParamTree(params, cfg.dtype)
+        self.params = params.to(self.device)
+        self._mean = torch.tensor(SAM_MEAN, dtype=torch.float32,
+                                  device=self.device)
+        self._std = torch.tensor(SAM_STD, dtype=torch.float32,
+                                 device=self.device)
+
+    @classmethod
+    def random_init(cls, encoder: str = "hiera_l", image_size: int = 1024,
+                    seed: int = 0, device="cuda",
+                    compute_dtype: str = "bfloat16") -> "SAMModel":
+        """Random weights from a seeded ``torch.Generator`` on ``device``
+        (the reference's shapes and stds; numbers differ from JAX's PRNG)."""
+        cfg = _sam2(SAMConfig(encoder=encoder, image_size=image_size,
+                              compute_dtype=compute_dtype))
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return cls(cfg, init_sam(cfg, gen, dev), dev)
+
+    @classmethod
+    def from_jax_params(cls, encoder: str, image_size: int,
+                        params: Dict[str, Any], device="cuda",
+                        compute_dtype: str = "bfloat16") -> "SAMModel":
+        """Model from the JAX package's ``SAMModel.params`` (numpy leaves),
+        filled by path into the port's tree."""
+        from ..convert_jax import load_jax_params
+
+        cfg = _sam2(SAMConfig(encoder=encoder, image_size=image_size,
+                              compute_dtype=compute_dtype))
+        dev = resolve_device(device)
+        tree = ParamTree(init_sam(cfg, None, dev), cfg.dtype)
+        return cls(cfg, load_jax_params(tree, params, dev), dev)
+
+    # ------------------------------------------------------------------
+    def preprocess(self, image: torch.Tensor) -> torch.Tensor:
+        """(H, W, 3) float [0, 1] -> (1, S, S, 3) normalized, compute dtype
+        (square resize, the SAM2 predictor's convention)."""
+        s = self.cfg.image_size
+        img = resize_channels_last(image, (s, s))
+        return ((img - self._mean) / self._std)[None].to(self.cfg.dtype)
+
+    def encode_image(self, image: torch.Tensor
+                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """-> (image_embed (H16, W16, d), high_res [(H4, W4, 32),
+        (H8, W8, 64)]) for the decoder."""
+        feats = hiera_forward(self.params["trunk"], self.cfg.hiera, image)
+        fpn = neck_forward(self.params["neck"], feats)
+        # scalp: the lowest-resolution level (stride 32) is dropped
+        s4, s8, s16 = fpn[0], fpn[1], fpn[2]
+        dec = self.params["decoder"]
+        high_res = [conv1x1(dec["conv_s0"], s4)[0],
+                    conv1x1(dec["conv_s1"], s8)[0]]
+        return s16[0], high_res
+
+    def decode_grid(self, image_embed: torch.Tensor,
+                    high_res: List[torch.Tensor], points01: torch.Tensor,
+                    mask_channels=None, top_prompts=None
+                    ) -> Dict[str, torch.Tensor]:
+        """Batched single-point prompts: points01 (P, 2) in [0, 1] -> masks
+        (P', C, H4, W4) logits + iou (P', C) over ``mask_channels`` (P' =
+        top_prompts when the predicted-IoU gate is active)."""
+        H, W, _ = image_embed.shape
+        P = points01.shape[0]
+        sparse = encode_points(
+            self.params["prompt"], points01[:, None, :],
+            torch.ones((P, 1), dtype=torch.int32, device=points01.device))
+        image_pe = pe_grid(self.params["prompt"], H, W)
+        return decode_masks(self.params["decoder"], image_embed, image_pe,
+                            sparse, high_res_feats=high_res,
+                            mask_channels=mask_channels,
+                            top_prompts=top_prompts)

@@ -1,19 +1,24 @@
-"""Attention for the PE tower: the plain reference and kernel B5.
+"""Attention for the towers and the SAM decoder: plain references and the
+hand-written kernels B1-B5.
 
-Port of the parts of ``ovo_tpu/ops/attention.py`` the TextRegion slice runs:
+Port of the parts of ``ovo_tpu/ops/attention.py`` the port's slices run:
 
   - ``xla_attention``: plain softmax attention, the reference semantics
     (``attention.py:92-105``);
-  - ``rope_packed_attention``: packed-qkv attention with in-kernel
-    rotate-half RoPE and token-major output (``attention.py:326-366``). On a
-    CUDA tensor it launches the hand-written kernel in
-    ``csrc/rope_packed_attention.cu``; on a CPU tensor it runs
-    :func:`rope_packed_attention_plain`, the same function in PyTorch ops;
-  - ``use_rope_packed``: the wrapper's own check of what the kernel takes.
-    The TPU predicate's VMEM model and L / batch limits were TPU facts; the
-    kernel takes any L, so every RoPE self-attention layer goes through the
-    wrapper, which raises on a CUDA tensor outside the kernel's head sizes
-    and dtypes.
+  - ``rope_packed_attention`` (B5): packed-qkv attention with in-kernel
+    rotate-half RoPE and token-major output (``attention.py:326-366``);
+  - ``flash_attention`` (B1, ``:155``) and ``windowed_fused_attention`` (B2,
+    ``:395``) behind ``dot_product_attention``, for the Hiera trunk and the
+    decoder's token self-attention;
+  - ``cross_t2i_from_keys`` (B3, ``:1120``) and ``cross_i2t_tail_from_keys``
+    (B4, ``:1075``): the decoder's projection-fused cross attentions.
+
+Every kernel wrapper launches its kernel (``csrc/<name>.cu``) on a CUDA
+tensor, or raises on what the kernel does not take; on a CPU tensor it runs
+its ``*_plain`` version beside it, the same function in PyTorch ops with the
+reference's roundings. The TPU's routing rules (VMEM budgets, sublane pads)
+do not carry over: the CUDA kernels take any length and head size up to
+128 natively, so the wrappers pad nothing.
 """
 from __future__ import annotations
 
@@ -137,4 +142,412 @@ def rope_packed_attention(qkv: torch.Tensor, cos: torch.Tensor,
                  _DTYPES[qkv.dtype], stream)
     cuda_build.check(err, "rope_packed_attention")
     cuda_build.count_launch("rope_packed_attention")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B1 / B2: self-attention on (B, H, L, D) -- the Hiera trunk and the SAM
+# decoder's token self-attention
+# ---------------------------------------------------------------------------
+
+WINDOWED_MAX_LEN = 512
+WINDOWED_HEAD_DIMS = (16, 32, 48, 56, 64, 72, 80, 96, 112, 128)
+
+
+def attention_route(lq: int, lk: int) -> str:
+    """The kernel that runs a (.., lq, D) x (.., lk, D) self-attention on the
+    card: ``"windowed"`` (B2, many small instances) when both lengths are at
+    most 512, else ``"flash"`` (B1, streamed keys). A pure function of the
+    shapes; CPU tensors take the same route to the kernel's plain version."""
+    return ("windowed" if lq <= WINDOWED_MAX_LEN and lk <= WINDOWED_MAX_LEN
+            else "flash")
+
+
+def _keys_below(lk: int, kv_len: Optional[int], device) -> Optional[
+        torch.Tensor]:
+    if kv_len is None or kv_len >= lk:
+        return None
+    return torch.arange(lk, device=device) < kv_len
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, scale: Optional[float] = None,
+                          kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel B1 (``_flash_kernel``): q scaled in
+    f32 before the dot, keys >= kv_len at -1e30, f32 softmax whose weights
+    stay f32 (the streaming kernel never rounds them), f32 p.v, output in
+    q's dtype."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+    keep = _keys_below(k.shape[-2], kv_len, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+
+
+def windowed_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, scale: Optional[float] = None,
+                             kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel B2 (``_winfused_kernel``): f32 scores
+    with ``scale`` after the dot, keys >= kv_len at -1e30, f32 softmax, p
+    rounded to v's dtype, f32 p.v, output in q's dtype."""
+    keep = _keys_below(k.shape[-2], kv_len, q.device)
+    return xla_attention(q, k, v, mask=keep, scale=scale)
+
+
+def _check_self_args(q, k, v, kv_len):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q, k, v must be (B, H, L, D) with k.shape == "
+                         f"v.shape; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, Lq, D = q.shape
+    if k.shape[:2] != (B, H) or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    Lk = k.shape[2]
+    kv = Lk if kv_len is None else int(kv_len)
+    if not 1 <= kv <= Lk:
+        raise ValueError(f"kv_len {kv} outside [1, {Lk}]")
+    return B, H, Lq, Lk, D, kv
+
+
+def _check_device_tensors(name, tensors, dtype=None):
+    """Every tensor on one CUDA device in one kernel dtype (f32 / bf16)."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    dtype = dtype or tensors[0].dtype
+    if dtype not in _DTYPES:
+        raise ValueError(f"{name}: kernel takes float32 or bfloat16, got "
+                         f"{dtype}")
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: inputs must share device {dev} and "
+                             f"dtype {dtype}; got {t.device}, {t.dtype}")
+    return dev, dtype
+
+
+def _launch_self(name, symbol, q, k, v, kv, scale):
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    dev, dtype = _check_device_tensors(name, (q, k, v))
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: {n} needs a contiguous last dim, got "
+                             f"strides {t.stride()}")
+    # token-major output: the caller's (B, H, L, D) -> (B, L, H*D) merge of
+    # the heads is then a view
+    out = torch.empty((B, Lq, H, D), dtype=dtype, device=dev).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *out.stride()[:3])
+    fn = getattr(cuda_build.library(name), symbol)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                 H, Lq, Lk, D, kv, float(scale), _DTYPES[dtype], strides,
+                 stream)
+    cuda_build.check(err, name)
+    cuda_build.count_launch(name)
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: Optional[float] = None,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """(B, H, Lq, D) x (B, H, Lk, D) streaming-softmax attention (B1). Keys
+    at or past ``kv_len`` (default Lk) are masked. Any (batch, head, row)
+    strides with a contiguous last dim, head size up to 128; the output is a
+    (B, H, Lq, D) view of token-major memory.
+
+    CPU tensors run :func:`flash_attention_plain`; CUDA tensors launch
+    kernel B1 (``csrc/flash_attention.cu``) or raise."""
+    B, H, Lq, Lk, D, kv = _check_self_args(q, k, v, kv_len)
+    scale = scale if scale is not None else D ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale, kv_len=kv_len)
+    if not 1 <= D <= 128:
+        raise ValueError(f"flash_attention: head size {D} outside [1, 128]")
+    return _launch_self("flash_attention", "ovo_flash_attention", q, k, v, kv,
+                        scale)
+
+
+def windowed_fused_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *,
+                             scale: Optional[float] = None,
+                             kv_len: Optional[int] = None) -> torch.Tensor:
+    """Attention over many small (B*H) instances of (Lq, D) x (Lk, D), both
+    lengths at most 512 (B2). Keys at or past ``kv_len`` are masked; an
+    all-zero instance softmaxes to uniform (the mean of v), never NaN. Head
+    sizes in ``WINDOWED_HEAD_DIMS``; strides as :func:`flash_attention`.
+
+    CPU tensors run :func:`windowed_attention_plain`; CUDA tensors launch
+    kernel B2 (``csrc/windowed_attention.cu``) or raise."""
+    B, H, Lq, Lk, D, kv = _check_self_args(q, k, v, kv_len)
+    scale = scale if scale is not None else D ** -0.5
+    if q.device.type == "cpu":
+        return windowed_attention_plain(q, k, v, scale=scale, kv_len=kv_len)
+    if max(Lq, Lk) > WINDOWED_MAX_LEN or D not in WINDOWED_HEAD_DIMS:
+        raise ValueError(f"windowed_fused_attention takes Lq, Lk <= "
+                         f"{WINDOWED_MAX_LEN} and D in {WINDOWED_HEAD_DIMS}; "
+                         f"got Lq={Lq}, Lk={Lk}, D={D}")
+    for t in (q, k, v):
+        if (any(st % 4 for st in t.stride()[:3])
+                or t.data_ptr() % (4 * t.element_size())):
+            raise ValueError(f"windowed_fused_attention reads four elements "
+                             f"at a time: strides {t.stride()} and the data "
+                             f"pointer must be multiples of 4 elements")
+    return _launch_self("windowed_attention", "ovo_windowed_attention", q, k,
+                        v, kv, scale)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None,
+                          causal: bool = False) -> torch.Tensor:
+    """(B, H, Lq, D) x (B, H, Lk, D) -> (B, H, Lq, D) through kernel B1 or
+    B2 as :func:`attention_route` picks. Masked and causal attention are on
+    none of the port's paths: CPU tensors run :func:`xla_attention` for
+    them, CUDA tensors raise."""
+    if mask is not None or causal:
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                "masked / causal attention has no kernel on the card")
+        if causal and mask is None:
+            lq, lk = q.shape[-2], k.shape[-2]
+            mask = torch.ones((lq, lk), dtype=torch.bool,
+                              device=q.device).tril()[None, None]
+        return xla_attention(q, k, v, mask=mask, scale=scale)
+    if attention_route(q.shape[-2], k.shape[-2]) == "windowed":
+        return windowed_fused_attention(q, k, v, scale=scale)
+    return flash_attention(q, k, v, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# B3 / B4: the SAM decoder's projection-fused cross attentions
+# ---------------------------------------------------------------------------
+
+CROSS_MAX_ROWS = 64      # heads * tokens
+CROSS_MAX_TOKENS = 16    # B4's tokens per head
+CROSS_MAX_DK = 256
+
+
+def _heads_w(w: torch.Tensor, heads: int) -> torch.Tensor:
+    """(dk, D) weight -> (dk, heads, dh) f32."""
+    return w.float().reshape(w.shape[0], heads, -1)
+
+
+def cross_t2i_from_keys_plain(q_proj: torch.Tensor, keys: torch.Tensor,
+                              wk: torch.Tensor, wv: torch.Tensor,
+                              pe_k: torch.Tensor, bv: torch.Tensor,
+                              heads: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel B3 (``_crossq_proj_kernel``), per
+    head: qk = q_h Wk_h^T rounded to the dtype; s = (qk keys^T + q_h pe_k_h^T)
+    * scale in f32; softmax over L, p rounded to the dtype; pk = p keys
+    rounded; out = pk Wv_h + bv_h, in q's dtype."""
+    dt = keys.dtype
+    Bq, T, D = q_proj.shape
+    L, dk = keys.shape[1], keys.shape[2]
+    dh = D // heads
+    qh = q_proj.float().reshape(Bq, T, heads, dh)
+    qk = torch.einsum("bthj,chj->bhtc", qh, _heads_w(wk.to(dt), heads))
+    qk = qk.to(q_proj.dtype).float()                          # (Bq, h, T, dk)
+    kf = keys.float()[:, None]                                # (Bk, 1, L, dk)
+    s = torch.matmul(qk, kf.transpose(-1, -2))                # (B, h, T, L)
+    pe = pe_k.to(dt).float().reshape(L, heads, dh)
+    s = (s + torch.einsum("bthj,lhj->bhtl", qh, pe)) * dh ** -0.5
+    p = torch.softmax(s, dim=-1).to(dt).float()
+    pk = torch.matmul(p, kf).to(dt).float()                   # (B, h, T, dk)
+    o = torch.einsum("bhtc,chj->bthj", pk, _heads_w(wv.to(dt), heads))
+    o = o + bv.float().reshape(heads, dh)
+    return o.reshape(o.shape[0], T, D).to(q_proj.dtype)
+
+
+def _batch_stride(t: torch.Tensor) -> int:
+    """A batch-1 operand is shared: stride 0."""
+    return t.stride(0) if t.shape[0] > 1 else 0
+
+
+def _check_cross_batches(name, B, *tensors):
+    for t in tensors:
+        if t.shape[0] not in (1, B):
+            raise ValueError(f"{name}: batch {t.shape[0]} is neither 1 nor "
+                             f"{B}")
+        if not t[0].is_contiguous():
+            raise ValueError(f"{name}: each batch entry must be contiguous, "
+                             f"got strides {t.stride()}")
+
+
+def cross_t2i_from_keys(q_proj: torch.Tensor, keys: torch.Tensor,
+                        wk: torch.Tensor, wv: torch.Tensor,
+                        pe_k: torch.Tensor, bv: torch.Tensor,
+                        heads: int) -> torch.Tensor:
+    """Token -> image cross attention reading the raw keys stream (B3):
+    q_proj (B or 1, T, D) projected tokens, keys (B or 1, L, dk), wk / wv
+    (dk, D), pe_k (1, L, D) = image_pe Wk + bk, bv (D,) -> (B, T, D)
+    pre-out-projection, in q's dtype. Batch-1 operands are shared, never
+    broadcast in memory.
+
+    CPU tensors run :func:`cross_t2i_from_keys_plain`; CUDA tensors launch
+    kernel B3 (``csrc/cross_t2i.cu``) or raise."""
+    if q_proj.dim() != 3 or keys.dim() != 3:
+        raise ValueError("q_proj and keys must be (B, T, D) / (B, L, dk)")
+    B = max(q_proj.shape[0], keys.shape[0])
+    _, T, D = q_proj.shape
+    L, dk = keys.shape[1], keys.shape[2]
+    if (D % heads or wk.shape != (dk, D) or wv.shape != (dk, D)
+            or pe_k.numel() != L * D or bv.shape != (D,)):
+        raise ValueError(f"cross_t2i_from_keys: inconsistent shapes q "
+                         f"{tuple(q_proj.shape)}, keys {tuple(keys.shape)}, "
+                         f"wk {tuple(wk.shape)}, pe_k {tuple(pe_k.shape)}")
+    if keys.device.type == "cpu":
+        return cross_t2i_from_keys_plain(q_proj, keys, wk, wv, pe_k, bv,
+                                         heads)
+    dev, dt = _check_device_tensors("cross_t2i", (q_proj, keys))
+    if heads * T > CROSS_MAX_ROWS or dk % 16 or dk > CROSS_MAX_DK:
+        raise ValueError(f"cross_t2i takes heads*T <= {CROSS_MAX_ROWS}, "
+                         f"dk % 16 == 0, dk <= {CROSS_MAX_DK}; got heads="
+                         f"{heads}, T={T}, dk={dk}")
+    _check_cross_batches("cross_t2i", B, q_proj, keys)
+    if keys.data_ptr() % 16:
+        raise ValueError("cross_t2i: keys must be 16-byte aligned")
+    wk, wv = wk.to(dt).contiguous(), wv.to(dt).contiguous()
+    pe = pe_k.to(dt).reshape(L, D).contiguous()
+    bvf = bv.float().contiguous()
+    for t in (wk, wv, pe, bvf):
+        if t.device != dev:
+            raise ValueError(f"cross_t2i: weights must be on {dev}")
+    out = torch.empty((B, T, D), dtype=dt, device=dev)
+    fn = cuda_build.library("cross_t2i").ovo_cross_t2i
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q_proj.data_ptr(), keys.data_ptr(), wk.data_ptr(),
+                 wv.data_ptr(), pe.data_ptr(), bvf.data_ptr(), out.data_ptr(),
+                 B, T, heads, L, dk, D, float((D // heads) ** -0.5),
+                 _batch_stride(q_proj), _batch_stride(keys),
+                 _DTYPES[dt], stream)
+    cuda_build.check(err, "cross_t2i")
+    cuda_build.count_launch("cross_t2i")
+    return out
+
+
+def cross_i2t_tail_from_keys_plain(keys: torch.Tensor, wq: torch.Tensor,
+                                   pe_q: torch.Tensor, kk_tok: torch.Tensor,
+                                   vv_tok: torch.Tensor, wout: torch.Tensor,
+                                   bout: torch.Tensor,
+                                   ln_scale: torch.Tensor,
+                                   ln_bias: torch.Tensor, heads: int,
+                                   eps: float = 1e-5,
+                                   t_len: Optional[int] = None
+                                   ) -> torch.Tensor:
+    """Plain PyTorch version of kernel B4 (``_crossk_proj_ln_kernel``), in
+    the reference's types: kq = k_h Wq_h^T rounded; s = (kq keys^T + k_h
+    pe_q_h^T) * scale in f32, tokens >= t_len at -1e30; softmax over the
+    tokens of each head, p rounded; attn = p v rounded; y = attn Wout + bout
+    rounded; LayerNorm(y + keys) in f32, output in keys' dtype."""
+    dt = keys.dtype
+    L, dk = keys.shape[1], keys.shape[2]
+    Bt, T, D = kk_tok.shape
+    B = max(keys.shape[0], Bt)
+    dh = D // heads
+    kh = kk_tok.float().reshape(Bt, T, heads, dh)
+    kq = torch.einsum("bthj,chj->bhtc", kh, _heads_w(wq.to(dt), heads))
+    kq = kq.to(dt).float()                                    # (Bt, h, T, dk)
+    s = torch.matmul(kq, keys.float()[:, None].transpose(-1, -2))
+    pe = pe_q.to(dt).float().reshape(L, heads, dh)
+    s = (s + torch.einsum("bthj,lhj->bhtl", kh, pe)) * dh ** -0.5
+    if t_len is not None and t_len < T:
+        keep = (torch.arange(T, device=keys.device) < t_len)[:, None]
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=2).to(dt).float()               # (B, h, T, L)
+    vh = vv_tok.float().reshape(Bt, T, heads, dh).expand(B, T, heads, dh)
+    attn = torch.einsum("bhtl,bthj->blhj", p, vh).reshape(B, L, D)
+    attn = attn.to(dt).float()
+    y = torch.matmul(attn, wout.to(dt).float()) + bout.float()
+    x = y.to(dt).float() + keys.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    cen = x - mean
+    var = (cen * cen).mean(dim=-1, keepdim=True)
+    out = cen * torch.rsqrt(var + eps) * ln_scale.float() + ln_bias.float()
+    return out.to(dt)
+
+
+def cross_i2t_tail_from_keys(keys: torch.Tensor, wq: torch.Tensor,
+                             pe_q: torch.Tensor, kk_tok: torch.Tensor,
+                             vv_tok: torch.Tensor, wout: torch.Tensor,
+                             bout: torch.Tensor, ln_scale: torch.Tensor,
+                             ln_bias: torch.Tensor, heads: int,
+                             eps: float = 1e-5,
+                             t_len: Optional[int] = None) -> torch.Tensor:
+    """Image -> token cross attention plus its image-side tail (B4): keys
+    (B or 1, L, dk), wq (dk, D), pe_q (1, L, D) = image_pe Wq + bq, kk_tok /
+    vv_tok (B or 1, T, D) projected tokens, wout (D, dk), bout / ln_scale /
+    ln_bias (dk,) -> the next layer's keys (B, L, dk) in keys' dtype.
+    Tokens at or past ``t_len`` (default T) are masked.
+
+    CPU tensors run :func:`cross_i2t_tail_from_keys_plain`; CUDA tensors
+    launch kernel B4 (``csrc/cross_i2t_tail.cu``) or raise."""
+    if keys.dim() != 3 or kk_tok.dim() != 3 or kk_tok.shape != vv_tok.shape:
+        raise ValueError("keys (B, L, dk) and kk_tok == vv_tok (B, T, D) "
+                         "shapes expected")
+    L, dk = keys.shape[1], keys.shape[2]
+    Bt, T, D = kk_tok.shape
+    B = max(keys.shape[0], Bt)
+    tl = T if t_len is None else int(t_len)
+    if (D % heads or wq.shape != (dk, D) or wout.shape != (D, dk)
+            or pe_q.numel() != L * D or not 1 <= tl <= T
+            or any(t.shape != (dk,) for t in (bout, ln_scale, ln_bias))):
+        raise ValueError(f"cross_i2t_tail_from_keys: inconsistent shapes keys "
+                         f"{tuple(keys.shape)}, tokens {tuple(kk_tok.shape)}, "
+                         f"wq {tuple(wq.shape)}, wout {tuple(wout.shape)}, "
+                         f"t_len {tl}")
+    if keys.device.type == "cpu":
+        return cross_i2t_tail_from_keys_plain(
+            keys, wq, pe_q, kk_tok, vv_tok, wout, bout, ln_scale, ln_bias,
+            heads, eps=eps, t_len=t_len)
+    dev, dt = _check_device_tensors("cross_i2t_tail", (keys, kk_tok, vv_tok))
+    if (T > CROSS_MAX_TOKENS or heads * T > CROSS_MAX_ROWS or dk % 16
+            or dk > CROSS_MAX_DK or (D // heads) % 4):
+        raise ValueError(f"cross_i2t_tail takes T <= {CROSS_MAX_TOKENS}, "
+                         f"heads*T <= {CROSS_MAX_ROWS}, dk % 16 == 0, dk <= "
+                         f"{CROSS_MAX_DK}, head size % 4 == 0; got T={T}, "
+                         f"heads={heads}, dk={dk}, D={D}")
+    _check_cross_batches("cross_i2t_tail", B, keys, kk_tok, vv_tok)
+    if _batch_stride(kk_tok) != _batch_stride(vv_tok):
+        raise ValueError("cross_i2t_tail: kk_tok and vv_tok need one batch "
+                         "stride")
+    if keys.data_ptr() % 16:
+        raise ValueError("cross_i2t_tail: keys must be 16-byte aligned")
+    wq, wout = wq.to(dt).contiguous(), wout.to(dt).contiguous()
+    pe = pe_q.to(dt).reshape(L, D).contiguous()
+    bo, g, bb = (t.float().contiguous() for t in (bout, ln_scale, ln_bias))
+    for t in (wq, wout, pe, bo, g, bb):
+        if t.device != dev:
+            raise ValueError(f"cross_i2t_tail: weights must be on {dev}")
+    out = torch.empty((B, L, dk), dtype=dt, device=dev)
+    # the kernel's scratch: k_tok Wq^T per prompt, formed once per launch
+    kq = torch.empty((B if kk_tok.shape[0] > 1 else 1, heads * T, dk),
+                     dtype=dt, device=dev)
+    fn = cuda_build.library("cross_i2t_tail").ovo_cross_i2t_tail
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(keys.data_ptr(), wq.data_ptr(), pe.data_ptr(),
+                 kk_tok.data_ptr(), vv_tok.data_ptr(), wout.data_ptr(),
+                 bo.data_ptr(), g.data_ptr(), bb.data_ptr(), out.data_ptr(),
+                 kq.data_ptr(),
+                 B, T, heads, tl, L, dk, D, float((D // heads) ** -0.5),
+                 float(eps), _batch_stride(keys), _batch_stride(kk_tok),
+                 _DTYPES[dt], stream)
+    cuda_build.check(err, "cross_i2t_tail")
+    cuda_build.count_launch("cross_i2t_tail")
     return out

@@ -1,6 +1,8 @@
-"""The hand-written CUDA kernels B5 (rope_packed_attention) and B6
-(masked_pool) against their plain PyTorch versions, on a CUDA card. These
-tests skip without one (the kernels have no CPU mode). The file imports
+"""The hand-written CUDA kernels B5 (rope_packed_attention), B6
+(masked_pool) and B1-B4 (flash, windowed and the two decoder cross
+attentions; limits beside their tests below) against their plain PyTorch
+versions, on a CUDA card. These tests skip without one (the kernels have no
+CPU mode). The file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -78,3 +80,111 @@ def test_masked_pool_kernel_matches_plain(cuda_device, dtype, tol):
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+# ---------------------------------------------------------------------------
+# B1-B4 (the SAM2 automatic-mask path). Limits: 1e-4 abs in f32 (summation
+# order). bf16: B1 and its plain version both keep the softmax weights in
+# f32 and round once at the output, a softmax mean of N(0,1) values below 1
+# here, where one bf16 step is at most 2^-8: 1e-2. B2 and B4 round the
+# normalized weights to bf16 on both sides, so a weight on a rounding edge
+# can flip one step (2^-9 relative) and move the output a step: 1e-2 for
+# B2; B4's output is a LayerNorm of order-1 values up to ~4, where one step
+# is 2^-6, after two more roundings (attn, y): 6e-2. B3 keeps p in f32 where
+# the plain version rounds it (the reference's order), and its output adds a
+# N(0,1) bias, |out| < ~4: 3e-2. The limits are those of chip_smoke.py.
+# ---------------------------------------------------------------------------
+
+from ovo_tpu_torch.ops import attention as A  # noqa: E402
+
+
+def _dev(x, dev, dtype):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+
+
+def _err(got, ref):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    return (got.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_flash_kernel_matches_plain(cuda_device, dtype, tol):
+    rng = np.random.default_rng(21)
+    for hd, L in ((72, 300), (32, 129)):
+        # head-split views of a packed (B, L, 3, H, hd) projection
+        qkv = _dev(rng.standard_normal((2, L, 3, 3, hd)), cuda_device, dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        for kv_len in (None, L - 50):
+            got = A.flash_attention(q, k, v, kv_len=kv_len)
+            ref = A.flash_attention_plain(q, k, v, kv_len=kv_len)
+            assert _err(got, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_windowed_kernel_matches_plain(cuda_device, dtype, tol):
+    rng = np.random.default_rng(22)
+    for B, H, lq, lk, hd in ((20, 3, 16, 64, 72), (2, 4, 196, 196, 72),
+                             (50, 2, 4, 16, 72), (64, 8, 8, 8, 32),
+                             (3, 2, 49, 196, 72)):
+        q = _dev(rng.standard_normal((B, lq, H, hd)), cuda_device,
+                 dtype).transpose(1, 2)
+        k, v = (_dev(rng.standard_normal((B, H, lk, hd)), cuda_device, dtype)
+                for _ in range(2))
+        q[1], k[1] = 0, 0                    # a padded instance
+        for kv_len in (None, lk - 3):
+            got = A.windowed_fused_attention(q, k, v, kv_len=kv_len)
+            ref = A.windowed_attention_plain(q, k, v, kv_len=kv_len)
+            assert _err(got, ref) <= tol
+        # the padded instance: the mean of v over the kv_len - 3 keys
+        mean = v[1, :, :lk - 3].float().mean(dim=1, keepdim=True)
+        assert (got[1].float() - mean).abs().max().item() <= tol
+
+
+def _cross_args(rng, dev, dtype, B, Bk, T, L, heads=8, D=128, dk=256):
+    f = np.float32
+    return dict(
+        q=_dev(rng.standard_normal((B, T, D)), dev, dtype),
+        keys=_dev(rng.standard_normal((Bk, L, dk)), dev, dtype),
+        wk=_dev(rng.standard_normal((dk, D)) * dk ** -0.5, dev, dtype),
+        wv=_dev(rng.standard_normal((dk, D)) * dk ** -0.5, dev, dtype),
+        pe=_dev(rng.standard_normal((1, L, D)), dev, dtype),
+        bv=_dev(rng.standard_normal(D), dev, torch.float32),
+        wout=_dev(rng.standard_normal((D, dk)) * D ** -0.5, dev, dtype),
+        bout=_dev(rng.standard_normal(dk).astype(f), dev, torch.float32),
+        g=_dev(rng.random(dk) + 0.5, dev, torch.float32),
+        b=_dev(rng.standard_normal(dk), dev, torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_cross_t2i_kernel_matches_plain(cuda_device, dtype, tol):
+    rng = np.random.default_rng(23)
+    for Bk in (1, 5):
+        x = _cross_args(rng, cuda_device, dtype, 5, Bk, 8, 300)
+        args = (x["q"], x["keys"], x["wk"], x["wv"], x["pe"], x["bv"], 8)
+        got = A.cross_t2i_from_keys(*args)
+        assert _err(got, A.cross_t2i_from_keys_plain(*args)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 6e-2)])
+def test_cross_i2t_tail_kernel_matches_plain(cuda_device, dtype, tol):
+    rng = np.random.default_rng(24)
+    # (token batch, keys batch, tokens, t_len, rows): shared keys, per-prompt
+    # keys with masked tokens, shared tokens with fewer than 64 token rows
+    for Bt, Bk, T, t_len, L in ((3, 1, 8, None, 100), (3, 3, 8, 6, 300),
+                                (1, 3, 5, 4, 130)):
+        x = _cross_args(rng, cuda_device, dtype, Bt, Bk, T, L)
+        vv = x["q"].flip(1).contiguous()
+        args = (x["keys"], x["wk"], x["pe"], x["q"], vv, x["wout"],
+                x["bout"], x["g"], x["b"], 8)
+        got = A.cross_i2t_tail_from_keys(*args, t_len=t_len)
+        ref = A.cross_i2t_tail_from_keys_plain(*args, t_len=t_len)
+        assert _err(got, ref) <= tol

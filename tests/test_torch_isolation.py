@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no ``jax`` and no ``ovo_tpu`` import
-anywhere in ``ovo_tpu_torch/`` or ``chip_smoke.py``; it imports and runs
-with jax, yaml and cv2 blocked; its entry points refuse to fall back to the
-CPU on their own."""
+anywhere in ``ovo_tpu_torch/`` (the SAM2 modules and the kernel wrappers
+included) or ``chip_smoke.py``; it imports and runs -- the pipeline and the
+live SAM2 mask source -- with jax, yaml and cv2 blocked; its entry points
+refuse to fall back to the CPU on their own."""
 import ast
 import os
 import subprocess
@@ -34,6 +35,11 @@ def _imported_modules(path):
 def test_no_jax_or_reference_package_imports():
     files = _sources()
     assert len(files) > 20
+    names = {str(p.relative_to(ROOT)) for p in files}
+    assert {f"ovo_tpu_torch/models/sam/{m}.py" for m in (
+        "hiera", "neck", "prompt", "decoder", "model", "amg")} <= names
+    assert {"ovo_tpu_torch/ops/attention.py", "ovo_tpu_torch/ops/masks.py",
+            "ovo_tpu_torch/ops/patchify.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
@@ -69,6 +75,16 @@ m = OVOSemMap(cfg, {out!r}, dataset=SyntheticWallDataset(n_frames=6),
 m.run()
 assert int(m.slam_backbone.get_map().count) > 1000
 assert len(m.ovo.active_ids()) >= 3
+# the live SAM2 mask source (hiera_test): kernels B1-B4's plain versions
+from ovo_tpu_torch.factory import build_mask_source
+src = build_mask_source({{"sam": {{"precomputed": False,
+                                 "sam_encoder": "hiera_test",
+                                 "image_size": 128, "pred_iou_th": 0.0,
+                                 "stability_score_th": 0.0,
+                                 "nms_score_th": 0.0, "points_per_side": 4}},
+                        "capacity": {{"n_masks": 16}}}}, device="cpu")
+seg, bmaps, valid = src.get_masks(SyntheticWallDataset(n_frames=1)[0][1], 0)
+assert bmaps.shape[0] == 16 and bool(valid.any())
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("ISOLATED-RUN-OK")
 """
@@ -98,4 +114,12 @@ def test_entry_points_refuse_silent_cpu_fallback(tmp_path, monkeypatch):
         CLIPModel.random_init("tiny-pe")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CallableMaskSource(lambda i, f: None)
+    from ovo_tpu_torch.models.sam import build_sam_mask_source
+    from ovo_tpu_torch.models.sam.model import SAMModel
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SAMModel.random_init("hiera_test", 128)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_sam_mask_source({"sam_encoder": "hiera_test",
+                               "image_size": 128})
     assert resolve_device("cpu").type == "cpu"

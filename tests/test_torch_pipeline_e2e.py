@@ -209,8 +209,18 @@ def test_factory_builds_textregion_and_rejects_unported(tmp_path):
     assert isinstance(emb, TR) and emb.clip_dim == 32
     with pytest.raises(NotImplementedError):
         build_embedder({"clip": {"embed_type": "vanilla"}}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_mask_source({"sam": {"precomputed": False}}, "s", device="cpu")
+    from ovo_tpu_torch.models.sam.amg import AutomaticMaskSource
+
+    live = build_mask_source({"sam": {"precomputed": False,
+                                      "sam_encoder": "hiera_test",
+                                      "image_size": 128},
+                              "capacity": {"n_masks": 16}}, "s", device="cpu")
+    assert isinstance(live, AutomaticMaskSource) and live.max_masks == 16
+    assert live.stability_thresh == 0.95 and live.min_area == 0
+    with pytest.raises(NotImplementedError):       # SAM1 / ViT-det (A9)
+        build_mask_source({"sam": {"precomputed": False,
+                                   "sam_encoder": "vit_b",
+                                   "sam_version": ""}}, "s", device="cpu")
 
 
 def test_log_mode_records_stats_and_matches_hot_path(tmp_path):
