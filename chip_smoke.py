@@ -27,7 +27,23 @@ non-zero and prints no result):
              Hiera-L automatic mask generator at 1024^2 (built from the
              config, seeded random bf16 weights, gates at 0); launch counts
              per keyframe, host syncs in the frame loop (none allowed)
-  kernels    the kernels with their launch counts on the amg_slice
+  reference_crop  the crop ``hovsg`` embedder on a SigLIP-structured card
+             built here (no class token, attention pooling, 224^2 / 14 = 256
+             tokens, so the tower takes kernel B10; bidirectional text
+             tower), on the small scene, on the card and on the CPU, then
+             classify_instances: equal map and instances, descriptors within
+             cosine 1e-4, classes equal where the top-2 margin is above 1e-4
+  crop_slice the paper's descriptor: the precomputed-mask slice with the
+             clip section set to the learned merger over SigLIP-384 crops
+             at full width (f32, random weights), 30 frames; 81 B10 launches
+             per embedded keyframe (27 layers x the seg, bbox and global
+             views), no other kernel, no host sync in the frame loop
+  query      classify_instances over the crop_slice's map (SigLIP-384 text
+             tower, 64 tokens: 27 B2 launches per class) and over the
+             slice's map (PE's causal text tower: the plain route, no
+             kernel); similarities finite and in [0, 1] for SigLIP
+  kernels    the kernels with their launch counts on the path that runs
+             them: the amg_slice (B1-B6) and the crop_slice (B10)
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -101,6 +117,21 @@ AMG_KERNELS = {
 # final attention; i2t + norm4 in 2 layers
 AMG_LAUNCHES_PER_KF = {"flash_attention": 3, "windowed_attention": 47,
                        "cross_t2i": 3, "cross_i2t_tail": 2}
+# the paper's descriptor (SURVEY.md section 6): SAM2 masks, SigLIP-384
+# crops (masked, bbox, global) fused by the learned merger
+CROP_CLIP = {"embed_type": "learned", "model_card": "SigLIP-384",
+             "mask_res": 336, "k_top_views": 10000, "fusion": "avg_pooling"}
+B10_SOURCE = "ovo_tpu_torch/csrc/fused_attention.cu"
+B10_REPLACES = "ovo_tpu/ops/attention.py:218"
+# B10 at the crop path's shapes: the global view and 96 mask crops of
+# SigLIP-384 (16 heads of 72, 27^2 = 729 tokens)
+B10_BATCHES = (1, 96)
+# the query phase's vocabulary: Replica's most frequent classes
+QUERY_CLASSES = ["wall", "floor", "ceiling", "chair", "table", "sofa", "bed",
+                 "cabinet", "door", "window", "lamp", "pillow", "plant",
+                 "book", "rug", "blinds"]
+QUERY_TEMPLATE = "This is a photo of a {}"
+
 # the live mask source of the main path: configs/ovo.yaml's sam section
 # (hiera_l, SAM 2.1, 16x16 points) with the random-weight gates at 0
 SAM_LIVE = {"precomputed": False, "sam_encoder": "hiera_l",
@@ -250,7 +281,9 @@ def _bound(nbytes, flops, dtype, peaks):
 
 def _max_err(got, ref, what):
     torch.cuda.synchronize()
-    if not torch.isfinite(got.float()).all():
+    # a NaN on either side would read as no error (max and > ignore NaN)
+    if not (torch.isfinite(got.float()).all()
+            and torch.isfinite(ref.float()).all()):
         raise AssertionError(f"{what} produced non-finite values")
     return float((got.float() - ref.float()).abs().max())
 
@@ -293,9 +326,11 @@ def check_b1(dev, dtype, peaks, tol):
                    shape=[1, heads, L, hd])
 
 
-# B2 at the AMG shapes: (windows, heads, lq, lk, hd)
+# B2 at the main paths' shapes, (windows, heads, lq, lk, hd): the AMG
+# windows and decoder tokens, and the SigLIP-384 text tower (one prompt of
+# 64 tokens; its q, k, v are head-split views of one packed projection too)
 B2_SHAPES = {"stage1": (1024, 2, 64, 64, 72), "stage3": (25, 8, 196, 196, 72),
-             "decoder": (256, 8, 8, 8, 32)}
+             "decoder": (256, 8, 8, 8, 32), "text": (1, 16, 64, 64, 72)}
 
 
 def check_b2(dev, dtype, peaks, tol, which):
@@ -393,6 +428,27 @@ def check_b4(dev, dtype, peaks, tol, Bk):
                    lambda: cross_i2t_tail_from_keys_plain(*args),
                    lambda: sdpa(qq, kt, vt), nbytes, flops, peaks,
                    keys_batch=Bk, shape=[B, T, L, dk, D])
+
+
+def check_b10(dev, dtype, peaks, tol, batch):
+    from ovo_tpu_torch.ops.attention import (fused_attention,
+                                             fused_attention_plain)
+
+    heads, L, hd = 16, 729, 72          # SigLIP-384: 27^2 tokens
+    gen = torch.Generator(device=dev).manual_seed(10)
+    qkv, (q, k, v) = _heads_of_packed(gen, batch, L, heads, hd, dev, dtype)
+    err = 0.0
+    for kv in (None, L - 100):
+        err = max(err, _max_err(fused_attention(q, k, v, kv_len=kv),
+                                fused_attention_plain(q, k, v, kv_len=kv),
+                                "B10"))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return _report("fused_attention", dtype, err, tol,
+                   lambda: fused_attention(q, k, v),
+                   lambda: fused_attention_plain(q, k, v),
+                   lambda: sdpa(q, k, v), storage_bytes(qkv) + q.numel()
+                   * q.element_size(), 4.0 * batch * heads * L * L * hd,
+                   peaks, shape=[batch, heads, L, hd])
 
 
 # ---------------------------------------------------------------------------
@@ -556,6 +612,100 @@ def run_reference_amg(dev) -> dict:
                 logit_max_abs=logit_scale)
 
 
+def smoke_siglip_card():
+    """SigLIP-structured at test scale: no class token, attention pooling,
+    224^2 / 14 = 256 tokens (B10's route), bidirectional text tower over
+    64 tokens pooled at the last one (B2's), sigmoid similarity."""
+    from ovo_tpu_torch.models.clip import (SIGLIP_MEAN, SIGLIP_STD,
+                                           CLIPModelConfig, TextConfig,
+                                           ViTConfig)
+
+    return CLIPModelConfig(
+        name="smoke-siglip",
+        vision=ViTConfig(image_size=224, patch_size=14, width=64, depth=2,
+                         n_heads=4, mlp_ratio=3.7362, embed_dim=32,
+                         use_cls_token=False, use_abs_pos=True, pool="attn"),
+        text=TextConfig(vocab_size=1024, context_length=64, width=64,
+                        depth=2, n_heads=4, mlp_ratio=3.7362, embed_dim=32,
+                        causal=False, pool="last"),
+        mean=SIGLIP_MEAN, std=SIGLIP_STD, siglip=True, clip_dim=32)
+
+
+def run_reference_crop(dev) -> dict:
+    """The crop hovsg embedder (roi crops, B10 in the image tower) builds
+    the small scene's map on the card and on the CPU, then
+    classify_instances (B2 in the text tower): same map and instances,
+    descriptors within cosine 1e-4, classes equal where the top-2 margin is
+    above 1e-4."""
+    from ovo_tpu_torch.data.masks import CallableMaskSource
+    from ovo_tpu_torch.mapping.pipeline import OVOSemMap
+    from ovo_tpu_torch.models.clip import CLIPModel, CropCLIPEmbedder
+    from ovo_tpu_torch.ops import cuda_build
+
+    scene = WallScene(12, 96, 160, 80.0, 80.0, 79.5, 47.5, seed=2, cell=0.8)
+    cfg = json.loads(json.dumps(REPLICA_CONFIG))
+    cfg["mapping"].update(map_every=2, n_points_capacity=1 << 16)
+    cfg["semantic"].update(segment_every=2, kf_queue_delay=2, track_th=40,
+                           depth_filter=False)
+    base = CLIPModel.random_init(smoke_siglip_card(), seed=4, device="cpu")
+
+    def weights_on(d):
+        # one set of weights on each device; logit bias 0 spreads the
+        # sigmoid similarities
+        return CLIPModel(base.cfg, copy.deepcopy(base.visual), d,
+                         text=copy.deepcopy(base.text),
+                         logit_scale=float(base.logit_scale), logit_bias=0.0,
+                         tokenizer=base.tokenizer)
+
+    out = {}
+    cuda_build.reset_launch_counts()
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model = weights_on(d)
+        with tempfile.TemporaryDirectory() as tmp:
+            m = OVOSemMap(json.loads(json.dumps(cfg)), tmp, dataset=scene,
+                          mask_source=CallableMaskSource(
+                              lambda img, fid: scene.masks(fid), 96, d),
+                          embedder=CropCLIPEmbedder(model, "hovsg",
+                                                    mask_res=168),
+                          device=d)
+            m.run()
+        st = m.slam_backbone.get_map()
+        n = int(st.count)
+        sims = m.ovo.query(QUERY_CLASSES, [QUERY_TEMPLATE])
+        res = m.ovo.classify_instances(QUERY_CLASSES, QUERY_TEMPLATE)
+        out[name] = (n, st.obj_ids[:n].cpu().numpy(), m.ovo.active_ids(),
+                     m.ovo.store.clip_feature.cpu().numpy(),
+                     m.ovo.store.has_clip.cpu().numpy(), sims, res)
+    counts = cuda_build.launch_counts()
+    (n1, o1, a1, f1, h1, s1, r1) = out["cuda"]
+    (n2, o2, a2, f2, h2, s2, r2) = out["cpu"]
+    if n1 != n2 or not np.array_equal(o1, o2) or not np.array_equal(a1, a2):
+        raise AssertionError("reference_crop: card and CPU maps differ")
+    rows = np.nonzero(h2)[0]
+    if len(rows) < 3 or not np.array_equal(h1, h2):
+        raise AssertionError("reference_crop: too few or differing "
+                             "descriptors")
+    cos = (f1[rows] * f2[rows]).sum(-1) / (
+        np.linalg.norm(f1[rows], axis=-1) * np.linalg.norm(f2[rows], axis=-1))
+    worst = float(np.abs(cos - 1.0).max())
+    if worst > 1e-4:
+        raise AssertionError(f"reference_crop: descriptor cosine off by "
+                             f"{worst}")
+    top2 = np.sort(s2, axis=1)
+    clear = top2[:, -1] - top2[:, -2] > 1e-4
+    if clear.sum() < 1 or not np.array_equal(r1["classes"][clear],
+                                             r2["classes"][clear]):
+        raise AssertionError(f"reference_crop: classes differ "
+                             f"({r1['classes']} / {r2['classes']})")
+    if counts["fused_attention"] < 1 or counts["windowed_attention"] < 1:
+        raise AssertionError(f"reference_crop: B10 / B2 not launched: "
+                             f"{counts}")
+    return dict(points=n1, instances=len(a1), descriptors=len(rows),
+                max_cos_dev=worst, classes_compared=int(clear.sum()),
+                max_sim_abs_err=float(np.abs(s1 - s2).max()),
+                launches=counts)
+
+
 class RecordingMaskSource:
     """Passes ``get_masks`` through and keeps each keyframe's valid-mask
     count as a device tensor (read after the run: no host sync)."""
@@ -570,15 +720,16 @@ class RecordingMaskSource:
         return seg, bmaps, valid
 
 
-def run_slice(dev, profile_path=None, live=False, frames=60) -> dict:
+def run_slice(dev, profile_path=None, live=False, frames=60, clip=None):
     """OVOSemMap on the 680x1200 wall scene, segmenting every 10th frame:
     precomputed-style masks from the scene, or (``live``) the SAM2 Hiera-L
-    automatic masks built from the config."""
+    automatic masks built from the config; ``clip`` replaces the config's
+    clip section. Returns the phase's record and the map."""
     from ovo_tpu_torch.data.masks import CallableMaskSource
     from ovo_tpu_torch.mapping.pipeline import OVOSemMap
     from ovo_tpu_torch.ops import cuda_build
 
-    tag = "amg_slice" if live else "slice"
+    tag = "amg_slice" if live else ("crop_slice" if clip else "slice")
     cam = REPLICA_CONFIG["cam"]
     t0 = time.time()
     scene = WallScene(frames, cam["H"], cam["W"], cam["fx"], cam["fy"],
@@ -587,8 +738,11 @@ def run_slice(dev, profile_path=None, live=False, frames=60) -> dict:
     t_scene = time.time() - t0
     with tempfile.TemporaryDirectory() as tmp:
         cfg = json.loads(json.dumps(REPLICA_CONFIG))
-        # the embedder is built from the config (PE-Core-L14-336, seeded
-        # random weights, on the card); so is the live mask source
+        if clip:
+            cfg["semantic"]["clip"] = dict(clip)
+        # the embedder is built from the config (PE-Core-L14-336, or the
+        # clip section given, seeded random weights, on the card); so is the
+        # live mask source
         if live:
             cfg["semantic"]["sam"] = dict(SAM_LIVE)
             source = None
@@ -649,8 +803,12 @@ def run_slice(dev, profile_path=None, live=False, frames=60) -> dict:
                              f"{valid_counts}")
     depth_layers = len(ovo.embedder.model.visual.blocks)
     expect = {name: 0 for name in cuda_build.KERNELS}
-    expect.update(rope_packed_attention=depth_layers * n_emb,
-                  masked_pool=n_emb)
+    if clip:
+        # the seg, bbox and global views each run the whole tower
+        expect.update(fused_attention=3 * depth_layers * n_emb)
+    else:
+        expect.update(rope_packed_attention=depth_layers * n_emb,
+                      masked_pool=n_emb)
     if live:
         expect.update({k: v * n_seg for k, v in AMG_LAUNCHES_PER_KF.items()})
     if n_emb == 0 or counts != expect:
@@ -659,7 +817,7 @@ def run_slice(dev, profile_path=None, live=False, frames=60) -> dict:
         raise AssertionError(f"{tag}: host syncs in the frame loop: "
                              f"{collections.Counter(loop_syncs)}")
     extra = _profile_summary(prof, wall, profile_path) if prof else {}
-    return dict(frames=len(scene), keyframes=ovo.kf_id,
+    record = dict(frames=len(scene), keyframes=ovo.kf_id,
                 segmented_keyframes=n_seg, embedded_keyframes=n_emb,
                 valid_masks_per_keyframe=valid_counts, seconds=wall,
                 keyframes_per_s=ovo.kf_id / wall,
@@ -672,6 +830,39 @@ def run_slice(dev, profile_path=None, live=False, frames=60) -> dict:
                 host_syncs=len(sync_list), host_syncs_in_loop=len(loop_syncs),
                 host_sync_sites=dict(collections.Counter(sync_list)),
                 launches=counts, **extra)
+    return record, sem_map
+
+
+def run_query(dev, ovo, per_class: dict) -> dict:
+    """classify_instances over ``ovo``'s map with the query vocabulary:
+    each class embedded on its own through the text tower; ``per_class``
+    the launches expected per class (every other kernel: none)."""
+    from ovo_tpu_torch.ops import cuda_build
+
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    t0 = time.time()
+    res = ovo.classify_instances(QUERY_CLASSES, QUERY_TEMPLATE)
+    wall = time.time() - t0
+    counts = cuda_build.launch_counts()
+    expect = {name: 0 for name in cuda_build.KERNELS}
+    expect.update({k: v * len(QUERY_CLASSES) for k, v in per_class.items()})
+    if counts != expect:
+        raise AssertionError(f"query: launches {counts}, expected {expect}")
+    sims = ovo.query(QUERY_CLASSES, [QUERY_TEMPLATE])
+    if sims.shape != (len(ovo.active_ids()), len(QUERY_CLASSES)) \
+            or not np.isfinite(sims).all():
+        raise AssertionError(f"query: similarities {sims.shape} not finite")
+    if ovo.embedder.model.cfg.siglip and not ((sims >= 0) & (sims <= 1)).all():
+        raise AssertionError("query: sigmoid similarities outside [0, 1]")
+    if not np.array_equal(res["ids"], ovo.active_ids()) \
+            or not (res["classes"] < len(QUERY_CLASSES)).all():
+        raise AssertionError("query: malformed classification")
+    return dict(card=ovo.embedder.model.cfg.name, classes=len(QUERY_CLASSES),
+                instances=len(res["ids"]), seconds=wall,
+                classified=int((res["classes"] >= 0).sum()),
+                sim_min=float(sims.min()), sim_max=float(sims.max()),
+                launches=counts)
 
 
 def _profiler():
@@ -747,9 +938,9 @@ def main(argv) -> int:
     if profile_path:
         # the first run carries the process's one-time costs; the traced
         # run's wall is read against the untraced run after it
-        emit("amg_slice", **run_slice(dev, live=True))
-        emit("profile", **run_slice(dev, profile_path, live=True))
-        emit("amg_slice", **run_slice(dev, live=True))
+        emit("amg_slice", **run_slice(dev, live=True)[0])
+        emit("profile", **run_slice(dev, profile_path, live=True)[0])
+        emit("amg_slice", **run_slice(dev, live=True)[0])
         return 0
 
     # f32: 1e-4 (the online softmax reorders the sums). bf16: the plain
@@ -774,6 +965,9 @@ def main(argv) -> int:
     checks += [(check_b3, f"b3_keys{bk}", 3e-2, {"Bk": bk}) for bk in (1, 256)]
     checks += [(check_b4, f"b4_keys{bk}", 6e-2, {"Bk": bk})
                for bk in (1, 256)]
+    # B10 in bf16: both sides round the normalized weights, as for B2: 1e-2
+    checks += [(check_b10, f"b10_b{b}", 1e-2, {"batch": b})
+               for b in B10_BATCHES]
     for check, tag, bf16_tol, kw in checks:
         for dtype, tol in ((torch.bfloat16, bf16_tol), (torch.float32, 1e-4)):
             r = check(dev, dtype, peaks, tol, **kw)
@@ -783,10 +977,20 @@ def main(argv) -> int:
 
     emit("reference", **run_reference(dev))
     emit("reference_amg", **run_reference_amg(dev))
-    emit("slice", **run_slice(dev))
-    amg = run_slice(dev, live=True)
+    emit("reference_crop", **run_reference_crop(dev))
+    pe_slice, pe_map = run_slice(dev)
+    emit("slice", **pe_slice)
+    amg, _ = run_slice(dev, live=True)
     emit("amg_slice", **amg)
-    emit("kernels", launches=amg["launches"])
+    crop, crop_map = run_slice(dev, frames=30, clip=CROP_CLIP)
+    emit("crop_slice", **crop)
+    text_depth = len(crop_map.ovo.embedder.model.text.blocks)
+    emit("query", **run_query(dev, crop_map.ovo,
+                              {"windowed_attention": text_depth}))
+    emit("query", **run_query(dev, pe_map.ovo, {}))
+    launches = dict(amg["launches"],
+                    fused_attention=crop["launches"]["fused_attention"])
+    emit("kernels", launches=launches)
 
     rows = []
     # per kernel, the main path's heaviest shape: B2 the stage-3 windows,
@@ -799,10 +1003,13 @@ def main(argv) -> int:
              *AMG_KERNELS["windowed_attention"]),
             ("b3_keys256", "cross_t2i", *AMG_KERNELS["cross_t2i"]),
             ("b4_keys256", "cross_i2t_tail",
-             *AMG_KERNELS["cross_i2t_tail"])):
-        r = results[(tag, "bfloat16")]
+             *AMG_KERNELS["cross_i2t_tail"]),
+            ("b10_b96", "fused_attention", B10_SOURCE, B10_REPLACES)):
+        # B10's path (the SigLIP-384 crops) runs in f32, the others in bf16
+        r = results[(tag, "float32" if tag.startswith("b10")
+                     else "bfloat16")]
         rows.append({"name": kname, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": amg["launches"][kname],
+                     "replaces": rep, "launches": launches[kname],
                      "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

@@ -1,7 +1,9 @@
 """Backend factories: mask sources and embedders from the ``semantic``
 config section (port of ``ovo_tpu/factory.py``): precomputed masks
 (``sam.precomputed: true``) or the live SAM2 automatic mask generator, and
-the TextRegion embedder."""
+the embedder of ``clip.embed_type`` -- TextRegion, or a crop embedder for
+``vanilla``, ``fixed_weights``, ``adaptive_weights``, ``hovsg``,
+``concept_fusion`` and ``learned``."""
 from __future__ import annotations
 
 import os

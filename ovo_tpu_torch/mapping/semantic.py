@@ -8,21 +8,24 @@ the masks' validity reach the host through asynchronous copies harvested
 one keyframe later (``utils/async_scalar.py``); growth checks and the
 ``active_cols`` bucket need only upper bounds.
 
-Loop closure (``update_map``), query / classification, point sharding,
-``sam.batch > 1``, ``debug_info`` records and ``restore_dict`` come with
-later slices and raise ``NotImplementedError`` here.
+Text queries and classification (``query``, ``classify_instances``) run
+after mapping. Loop closure (``update_map``), point sharding, the sharded
+query, ``sam.batch > 1``, ``debug_info`` records and ``restore_dict`` come
+with later slices and raise ``NotImplementedError`` here.
 
 Pluggable backends (duck-typed):
   mask_source.get_masks(image (H, W, 3) u8 numpy, frame_id) ->
       (seg_map (H, W) i32, binary_maps (M, H, W) bool, valid (M,) bool)
   embedder.clip_dim
   embedder.embed_masks(image, binary_maps, valid) -> (M, D) f32
+  embedder.embed_text(texts) -> (T, D) unit vectors (queries only)
+  embedder.similarity(txt (Q, D), descriptors (N, D)) -> (N, Q)
 """
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -293,22 +296,56 @@ class SemanticMapper:
     def update_map(self, map_state: MapState, kfs=None) -> MapState:
         raise NotImplementedError("semantic loop closure is not ported yet")
 
-    def query(self, queries, templates=("{}",)):
-        raise NotImplementedError("text queries are not ported yet")
-
-    def classify_instances(self, classes, template="This is a photo of a {}",
-                           th: float = 0.0):
-        raise NotImplementedError("classification is not ported yet")
-
     def restore_dict(self, scene_dict, debug_info: bool = False) -> None:
         raise NotImplementedError("checkpoint restore is not ported yet")
 
     # ------------------------------------------------------------------
-    # Checkpointing (the reference's key layout)
+    # Query / classification (after mapping: host reads are fine here)
     # ------------------------------------------------------------------
 
     def active_ids(self) -> np.ndarray:
         return np.where(self.store.active.cpu().numpy())[0]
+
+    def get_objs_clips(self) -> torch.Tensor:
+        ids = torch.as_tensor(self.active_ids(), dtype=torch.long,
+                              device=self.device)
+        return self.store.clip_feature[ids]
+
+    def query(self, queries: Sequence[str],
+              templates: Sequence[str] = ("{}",)) -> np.ndarray:
+        """(n_instances, n_queries) similarity map, instance rows in
+        active-id order. Each query is embedded on its own: the mean of its
+        template embeddings, normalized."""
+        if len(self.active_ids()) == 0:
+            raise ValueError("No 3D instances to query!")
+        obj_clips = self.get_objs_clips()
+        if isinstance(templates, str):
+            templates = [templates]
+        txt = []
+        for q in queries:
+            mean = self.embedder.embed_text(
+                [t.format(q) for t in templates]).float().mean(dim=0)
+            txt.append(mean / torch.linalg.vector_norm(mean).clamp_min(1e-12))
+        sim = self.embedder.similarity(torch.stack(txt), obj_clips)
+        return sim.cpu().numpy()
+
+    def classify_instances(self, classes: Sequence[str],
+                           template="This is a photo of a {}",
+                           th: float = 0.0) -> Dict[str, np.ndarray]:
+        """Per active instance the best class index (-1 where its similarity
+        is at most ``th``), its similarity (0 there) and the instance id."""
+        sim = self.query(classes, template
+                         if isinstance(template, (list, tuple))
+                         else [template])
+        cls = sim.argmax(axis=1)
+        conf = sim[np.arange(len(cls)), cls]
+        cls = np.where(conf <= th, -1, cls)
+        conf = np.where(conf <= th, 0.0, conf)
+        return {"classes": cls, "conf": conf, "ids": self.active_ids()}
+
+    # ------------------------------------------------------------------
+    # Checkpointing (the reference's key layout)
+    # ------------------------------------------------------------------
 
     def capture_dict(self, debug_info: bool = False,
                      map_dict: Optional[Dict[str, Any]] = None

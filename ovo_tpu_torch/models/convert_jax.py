@@ -6,6 +6,11 @@ lists of arrays. The port's modules name their parameters by the same paths
 ``(d_in, d_out)`` used as ``x @ w``, the patch weight HWIO ``(p, p, 3,
 width)``, ``proj`` ``(width, embed_dim)`` -- so a tree loads by path with no
 transposes. Leaves arrive as numpy arrays (``np.asarray`` of JAX arrays).
+
+Trees carried this way: a CLIP model's ``visual`` and ``text`` towers with
+its ``logit_scale`` / ``logit_bias`` scalars (``models/clip.py``
+``CLIPModel.from_jax_params``), the SAM2 model (``models/sam/model.py``) and
+the learned merger (:func:`merger_from_jax_params`).
 """
 from __future__ import annotations
 
@@ -62,3 +67,16 @@ def load_jax_params(module_or_tree: Union[nn.Module, Dict[str, Any]],
             p.data = torch.from_numpy(np.array(arr)).to(
                 device=device or p.device, dtype=dtype or p.dtype)
     return module
+
+
+def merger_from_jax_params(np_tree: Dict[str, Any], device=None,
+                           n_heads: int = 8):
+    """The learned merger (``models/merger.py``) from the JAX
+    ``init_merger`` tree (numpy leaves); sizes are read off the tree."""
+    from .merger import LearnedMerger, MergerParams
+
+    fc = np.asarray(np_tree["head"]["fc"]["w"])
+    d_model, mlp_hidden = fc.shape
+    params = MergerParams(d_model, len(np_tree["blocks"]), n_heads,
+                          mlp_hidden, device=device)
+    return LearnedMerger(load_jax_params(params, np_tree, device), n_heads)

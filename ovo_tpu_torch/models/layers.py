@@ -6,7 +6,9 @@ JAX layout ``(d_in, d_out)`` with ``y = x @ w``. Matmul weights and biases
 live in the compute dtype (the reference casts them to it on every call, so
 the numbers are the same); LayerNorm params stay f32, as the reference's
 statistics and affine run in f32. Self-attention with RoPE goes through
-kernel B5 (``ops/attention.rope_packed_attention``).
+kernel B5 (``ops/attention.rope_packed_attention``); without RoPE through
+``ops/attention.dot_product_attention`` (kernel B10, B2 or B1, or the plain
+route for causal attention and head sizes above 128).
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import apply_rope, rope_packed_attention, xla_attention
+from ..ops.attention import (apply_rope, dot_product_attention,
+                             rope_packed_attention, xla_attention)
 
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
@@ -154,24 +157,27 @@ def mlp(p: Mlp, x: torch.Tensor, act=gelu) -> torch.Tensor:
 def multi_head_attention(p: Attention, x: torch.Tensor, n_heads: int,
                          rope: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
-                         attn_impl: str = "auto",
+                         causal: bool = False, attn_impl: str = "auto",
                          n_valid: Optional[int] = None) -> torch.Tensor:
-    """Self-attention over x (B, L, D). With RoPE under ``attn_impl="auto"``
-    every layer goes through kernel B5 (packed qkv in, token-major out),
-    whose wrapper raises on a CUDA tensor it cannot take.
-    ``attn_impl="xla"`` runs the composed plain path, on the CPU only (it
-    is the reference the CPU tests hold B5's path against); attention
-    without RoPE waits for kernel B10 on the card. ``n_valid``: the real
-    token count when the caller pre-padded the token axis for the whole
-    tower (padded keys are masked)."""
+    """Self-attention over x (B, L, D). Under ``attn_impl="auto"`` a RoPE
+    layer goes through kernel B5 (packed qkv in, token-major out), whose
+    wrapper raises on a CUDA tensor it cannot take, and a layer without
+    RoPE goes through ``dot_product_attention`` on either device.
+    ``attn_impl="xla"`` runs the composed plain path (``xla_attention``),
+    with or without RoPE, on the CPU only: it is the reference the CPU tests
+    hold the kernel routes against. ``n_valid``: the real token count when
+    the caller pre-padded the token axis for the whole tower (padded keys
+    are masked)."""
     if attn_impl not in ("auto", "xla"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
-    kernel = rope is not None and attn_impl == "auto"
-    if not kernel and x.device.type != "cpu":
+    kernel = rope is not None and attn_impl == "auto" and not causal
+    plain = attn_impl == "xla" or (rope is not None and not kernel)
+    if plain and x.device.type != "cpu":
         raise NotImplementedError(
-            "on the card, self-attention runs only through kernel B5 (RoPE, "
-            f"attn_impl='auto'); got rope={rope is not None}, "
-            f"attn_impl={attn_impl!r}")
+            "on the card, self-attention runs through a kernel route "
+            "(attn_impl='auto'; with RoPE not causal); got "
+            f"attn_impl={attn_impl!r}, rope={rope is not None}, "
+            f"causal={causal}")
     B, L, D = x.shape
     hd = D // n_heads
     qkv = p.qkv(x)
@@ -186,25 +192,33 @@ def multi_head_attention(p: Attention, x: torch.Tensor, n_heads: int,
         return t.reshape(B, L, n_heads, hd).transpose(1, 2)
 
     q, k, v = (heads(t) for t in qkv.split(D, dim=-1))
-    if rope is not None:
-        cos, sin = rope
-        q = apply_rope(q, cos[:L], sin[:L])
-        k = apply_rope(k, cos[:L], sin[:L])
     mask = None
     if n_valid is not None and n_valid < L:
         mask = (torch.arange(L, device=x.device) < n_valid)[None, None,
                                                             None, :]
-    o = xla_attention(q, k, v, mask=mask)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rope(q, cos[:L], sin[:L])
+        k = apply_rope(k, cos[:L], sin[:L])
+    if plain:
+        if causal and mask is None:
+            mask = torch.ones((L, L), dtype=torch.bool,
+                              device=x.device).tril()[None, None]
+        o = xla_attention(q, k, v, mask=mask)
+    else:
+        o = dot_product_attention(q, k, v, mask=mask, causal=causal)
     return p.out(o.transpose(1, 2).reshape(B, L, D))
 
 
 def transformer_block(p: Block, x: torch.Tensor, n_heads: int,
                       rope: Optional[Tuple[torch.Tensor,
                                            torch.Tensor]] = None,
-                      attn_impl: str = "auto", act: str = "gelu",
+                      causal: bool = False, attn_impl: str = "auto",
+                      act: str = "gelu",
                       n_valid: Optional[int] = None) -> torch.Tensor:
     h = multi_head_attention(p.attn, p.ln1(x), n_heads, rope=rope,
-                             attn_impl=attn_impl, n_valid=n_valid)
+                             causal=causal, attn_impl=attn_impl,
+                             n_valid=n_valid)
     if p.ls1 is not None:
         h = h * p.ls1.to(h.dtype)
     x = x + h

@@ -22,18 +22,16 @@ import torch
 from ..ops.masked_pool import masked_single_query_attention
 from ..ops.resize import resize_channels_last, resize_planes
 from . import vit as vit_mod
-from .clip import CLIPModel, _normalize
+from .clip import BaseCLIPEmbedder, CLIPModel, _normalize
 
 
-class TextRegionEmbedder:
+class TextRegionEmbedder(BaseCLIPEmbedder):
     def __init__(self, model: CLIPModel,
                  resize_method: str = "multi_resolution",
                  remove_global_patch: bool = False,
                  global_patch_threshold: float = 0.07,
                  project_and_normalize: bool = True):
-        self.model = model
-        self.device = model.device
-        self.clip_dim = model.cfg.clip_dim
+        super().__init__(model)
         self.resize_method = resize_method
         self.remove_global_patch = remove_global_patch
         self.global_patch_threshold = global_patch_threshold

@@ -10,18 +10,19 @@ consumes; ``encode`` the pooled, projected embedding.
 RoPE attention always goes through kernel B5's wrapper, so the token
 stream is padded once for the whole tower to a multiple of 8 with the real
 count passed as ``kv_len`` (``vit.py:160-185``); padded rows stay row-local
-and are sliced off before ``ln_post``.
+and are sliced off before ``ln_post``. Attention without RoPE (the SigLIP
+and DFN towers) goes through ``ops/attention.dot_product_attention``, at the
+SigLIP-384 length of 729 tokens kernel B10, with no padding.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
-import numpy as np
 import torch
 from torch import nn
 
+from ..ops.resize import bilinear_weight_mat
 from . import layers as L
 
 
@@ -68,9 +69,12 @@ class PatchEmbed(nn.Module):
 
 
 class AttnPool(nn.Module):
-    """PE probe attention-pooling head."""
+    """PE probe attention-pooling head; with ``mlp_hidden`` also the SigLIP
+    MAP head's residual MLP (``ln2`` + ``mlp``, timm AttentionPoolLatent),
+    present only when the converted params carry it."""
 
-    def __init__(self, width: int, dtype, device=None):
+    def __init__(self, width: int, dtype, device=None,
+                 mlp_hidden: Optional[int] = None):
         super().__init__()
         self.probe = _param((1, width), torch.float32, device)
         self.ln = L.LayerNorm(width, device=device)
@@ -78,12 +82,20 @@ class AttnPool(nn.Module):
         self.k = L.Linear(width, width, dtype=dtype, device=device)
         self.v = L.Linear(width, width, dtype=dtype, device=device)
         self.out = L.Linear(width, width, dtype=dtype, device=device)
+        if mlp_hidden is not None:
+            self.ln2 = L.LayerNorm(width, device=device)
+            self.mlp = L.Mlp(width, mlp_hidden, dtype=dtype, device=device)
+        else:
+            self.ln2 = self.mlp = None
 
 
 class VisionTransformer(nn.Module):
-    """Parameters named as the JAX ``params["visual"]`` tree."""
+    """Parameters named as the JAX ``params["visual"]`` tree.
+    ``map_mlp_hidden``: the hidden width of the SigLIP MAP head's MLP when
+    the converted params carry one."""
 
-    def __init__(self, cfg: ViTConfig, device=None):
+    def __init__(self, cfg: ViTConfig, device=None,
+                 map_mlp_hidden: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         dt = cfg.dtype
@@ -99,7 +111,7 @@ class VisionTransformer(nn.Module):
             if cfg.use_cls_token else None
         self.pos = _param((cfg.n_tokens, cfg.width), torch.float32, device) \
             if cfg.use_abs_pos else None
-        self.attn_pool = AttnPool(cfg.width, dt, device) \
+        self.attn_pool = AttnPool(cfg.width, dt, device, map_mlp_hidden) \
             if cfg.pool == "attn" else None
 
 
@@ -131,32 +143,18 @@ def init_vit(cfg: ViTConfig, generator: torch.Generator,
     return m
 
 
-@functools.lru_cache(maxsize=32)
-def _jax_bilinear_matrix(src: int, dst: int) -> np.ndarray:
-    """(src, dst) weights of ``jax.image.resize(..., "bilinear")``: a
-    triangle kernel at half-pixel centers, widened by src/dst when
-    downsampling (antialias), weights renormalized per output sample."""
-    scale = dst / src
-    inv = 1.0 / scale
-    kscale = max(inv, 1.0)
-    sample = (np.arange(dst, dtype=np.float32) + 0.5) * np.float32(inv) - 0.5
-    x = np.abs(sample[None, :] - np.arange(src, dtype=np.float32)[:, None])
-    w = np.maximum(0.0, 1.0 - x / np.float32(kscale)).astype(np.float32)
-    tot = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(tot) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(tot != 0, tot, 1), 0.0)
-    inside = (sample >= -0.5) & (sample <= src - 0.5)
-    return np.where(inside[None, :], w, 0.0).astype(np.float32)
-
-
 def _interp_pos_embed(pos: torch.Tensor, n_prefix: int, grid: int,
                       new_grid: int) -> torch.Tensor:
     if grid == new_grid:
         return pos
     prefix, grid_pos = pos[:n_prefix], pos[n_prefix:]
-    from .. import to_device
+    # jax.image.resize's bilinear weights: scale_and_translate's with no
+    # translation and the inverse scale rounded once from the exact ratio
+    def f32(value):
+        return torch.full((1,), value, dtype=torch.float32, device=pos.device)
 
-    m = to_device(_jax_bilinear_matrix(grid, new_grid), pos.device)
+    m = bilinear_weight_mat(grid, new_grid, f32(new_grid / grid), f32(0.0),
+                            inv_scale=f32(1.0 / (new_grid / grid)))[0]
     g = grid_pos.float().reshape(grid, grid, -1)
     g = torch.einsum("hwc,hH->Hwc", g, m)
     g = torch.einsum("Hwc,wW->HWc", g, m).to(pos.dtype)
@@ -243,7 +241,10 @@ def attn_pool(p: AttnPool, x: torch.Tensor, n_heads: int,
                              torch.full_like(logits, -1e30))
     wts = torch.softmax(logits, dim=-1).to(vh.dtype)
     o = torch.einsum("bhl,bhld->bhd", wts.float(), vh.float()).to(x.dtype)
-    return p.out(o.reshape(B, D))
+    o = p.out(o.reshape(B, D))
+    if p.mlp is not None:
+        o = o + L.mlp(p.mlp, p.ln2(o))
+    return o
 
 
 def encode(model: VisionTransformer, cfg: ViTConfig, imgs: torch.Tensor,

@@ -1,15 +1,17 @@
 """Attention for the towers and the SAM decoder: plain references and the
-hand-written kernels B1-B5.
+hand-written kernels B1-B5 and B10.
 
 Port of the parts of ``ovo_tpu/ops/attention.py`` the port's slices run:
 
   - ``xla_attention``: plain softmax attention, the reference semantics
-    (``attention.py:92-105``);
+    (``attention.py:92-105``), and the route of causal, masked and
+    head-size > 128 attention on either device;
   - ``rope_packed_attention`` (B5): packed-qkv attention with in-kernel
     rotate-half RoPE and token-major output (``attention.py:326-366``);
-  - ``flash_attention`` (B1, ``:155``) and ``windowed_fused_attention`` (B2,
-    ``:395``) behind ``dot_product_attention``, for the Hiera trunk and the
-    decoder's token self-attention;
+  - ``fused_attention`` (B10, ``:218``), ``flash_attention`` (B1, ``:155``)
+    and ``windowed_fused_attention`` (B2, ``:395``) behind
+    ``dot_product_attention``, for the CLIP / SigLIP towers, the Hiera trunk,
+    the text towers and the decoder's token self-attention;
   - ``cross_t2i_from_keys`` (B3, ``:1120``) and ``cross_i2t_tail_from_keys``
     (B4, ``:1075``): the decoder's projection-fused cross attentions.
 
@@ -146,19 +148,35 @@ def rope_packed_attention(qkv: torch.Tensor, cos: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# B1 / B2: self-attention on (B, H, L, D) -- the Hiera trunk and the SAM
-# decoder's token self-attention
+# B10 / B1 / B2: self-attention on (B, H, L, D) -- the CLIP / SigLIP towers,
+# the Hiera trunk, the text towers and the SAM decoder's token self-attention
 # ---------------------------------------------------------------------------
 
 WINDOWED_MAX_LEN = 512
 WINDOWED_HEAD_DIMS = (16, 32, 48, 56, 64, 72, 80, 96, 112, 128)
+FUSED_MIN_LEN, FUSED_MAX_LEN = 256, 1024
+MAX_HEAD_DIM = 128
 
 
-def attention_route(lq: int, lk: int) -> str:
-    """The kernel that runs a (.., lq, D) x (.., lk, D) self-attention on the
-    card: ``"windowed"`` (B2, many small instances) when both lengths are at
-    most 512, else ``"flash"`` (B1, streamed keys). A pure function of the
-    shapes; CPU tensors take the same route to the kernel's plain version."""
+def attention_route(lq: int, lk: int, d: int, *, causal: bool = False,
+                    has_mask: bool = False) -> str:
+    """What runs a (.., lq, d) x (.., lk, d) self-attention, a pure function
+    of the shapes (CPU tensors take the same route to the kernel's plain
+    version):
+
+      - ``"xla"``: causal, masked or d > 128 -- :func:`xla_attention` on
+        either device (the reference routes these to XLA too, no Pallas
+        kernel: the causal text towers and the merger's head size 144);
+      - ``"fused"`` (B10): lq == lk in [256, 1024] -- the CLIP / SigLIP image
+        towers (JAX's route there, ``select_attention_route``, at any batch:
+        its bh <= 512 gate is a TPU grid limit);
+      - ``"windowed"`` (B2): both lengths at most 512 -- windows, text
+        towers, the decoder's tokens;
+      - ``"flash"`` (B1): the rest, long sequences with streamed keys."""
+    if causal or has_mask or d > MAX_HEAD_DIM:
+        return "xla"
+    if lq == lk and FUSED_MIN_LEN <= lq <= FUSED_MAX_LEN:
+        return "fused"
     return ("windowed" if lq <= WINDOWED_MAX_LEN and lk <= WINDOWED_MAX_LEN
             else "flash")
 
@@ -188,11 +206,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def windowed_attention_plain(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, scale: Optional[float] = None,
                              kv_len: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version of kernel B2 (``_winfused_kernel``): f32 scores
-    with ``scale`` after the dot, keys >= kv_len at -1e30, f32 softmax, p
-    rounded to v's dtype, f32 p.v, output in q's dtype."""
+    """Plain PyTorch version of kernels B2 (``_winfused_kernel``) and B10
+    (``_fused_kernel``): f32 scores with ``scale`` after the dot, keys >=
+    kv_len at -1e30, f32 softmax, p rounded to v's dtype, f32 p.v, output in
+    q's dtype."""
     keep = _keys_below(k.shape[-2], kv_len, q.device)
     return xla_attention(q, k, v, mask=keep, scale=scale)
+
+
+# B10 computes B2's function in B2's op order; only the tiling differs
+fused_attention_plain = windowed_attention_plain
 
 
 def _check_self_args(q, k, v, kv_len):
@@ -303,24 +326,46 @@ def windowed_fused_attention(q: torch.Tensor, k: torch.Tensor,
                         v, kv, scale)
 
 
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: Optional[float] = None,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """Whole-KV attention (B10): (B, H, Lq, D) x (B, H, Lk, D), Lk at most
+    1024, head size up to 128, any batch. Keys at or past ``kv_len``
+    (default Lk) are masked. Strides and output as :func:`flash_attention`.
+
+    CPU tensors run :func:`fused_attention_plain`; CUDA tensors launch
+    kernel B10 (``csrc/fused_attention.cu``) or raise."""
+    B, H, Lq, Lk, D, kv = _check_self_args(q, k, v, kv_len)
+    scale = scale if scale is not None else D ** -0.5
+    if q.device.type == "cpu":
+        return fused_attention_plain(q, k, v, scale=scale, kv_len=kv_len)
+    if Lk > FUSED_MAX_LEN or not 1 <= D <= MAX_HEAD_DIM or B * H > 65535:
+        raise ValueError(f"fused_attention takes Lk <= {FUSED_MAX_LEN}, head "
+                         f"size <= {MAX_HEAD_DIM} and B*H <= 65535; got "
+                         f"Lk={Lk}, D={D}, B*H={B * H}")
+    return _launch_self("fused_attention", "ovo_fused_attention", q, k, v, kv,
+                        scale)
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           scale: Optional[float] = None,
                           causal: bool = False) -> torch.Tensor:
-    """(B, H, Lq, D) x (B, H, Lk, D) -> (B, H, Lq, D) through kernel B1 or
-    B2 as :func:`attention_route` picks. Masked and causal attention are on
-    none of the port's paths: CPU tensors run :func:`xla_attention` for
-    them, CUDA tensors raise."""
-    if mask is not None or causal:
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                "masked / causal attention has no kernel on the card")
+    """(B, H, Lq, D) x (B, H, Lk, D) -> (B, H, Lq, D) as
+    :func:`attention_route` picks: kernel B10, B2 or B1, or -- causal,
+    masked (``mask`` broadcastable to (B, H, Lq, Lk), True = attend) or head
+    size above 128 -- :func:`xla_attention`, on either device."""
+    route = attention_route(q.shape[-2], k.shape[-2], q.shape[-1],
+                            causal=causal, has_mask=mask is not None)
+    if route == "xla":
         if causal and mask is None:
             lq, lk = q.shape[-2], k.shape[-2]
             mask = torch.ones((lq, lk), dtype=torch.bool,
                               device=q.device).tril()[None, None]
         return xla_attention(q, k, v, mask=mask, scale=scale)
-    if attention_route(q.shape[-2], k.shape[-2]) == "windowed":
+    if route == "fused":
+        return fused_attention(q, k, v, scale=scale)
+    if route == "windowed":
         return windowed_fused_attention(q, k, v, scale=scale)
     return flash_attention(q, k, v, scale=scale)
 

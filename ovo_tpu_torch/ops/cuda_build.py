@@ -26,7 +26,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ovo_tpu_torch"
 KERNELS = ("rope_packed_attention", "masked_pool", "flash_attention",
-           "windowed_attention", "cross_t2i", "cross_i2t_tail")
+           "windowed_attention", "cross_t2i", "cross_i2t_tail",
+           "fused_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

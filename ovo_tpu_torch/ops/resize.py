@@ -4,11 +4,15 @@ Half-pixel centers, edges clamped, no antialias: matches torch's
 ``F.interpolate(..., align_corners=False, antialias=False)`` (the
 reference's convention). The products run in f32 on values rounded to the
 input dtype, like the reference's ``preferred_element_type=f32``.
+
+:func:`scale_and_translate` is ``jax.image.scale_and_translate`` with the
+bilinear (triangle) kernel and antialiasing, with a scale and translation per
+image held in tensors, so per-mask crops need no host sync.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,3 +95,60 @@ def resize_channels_last(x: torch.Tensor, out_hw: Tuple[int, int], *,
     xf = x.float()
     y = torch.einsum("...hwc,hH->...Hwc", xf, mh)
     return torch.einsum("...Hwc,wW->...HWc", y, mw).to(x.dtype)
+
+
+def bilinear_weight_mat(in_size: int, out_size: int, scale: torch.Tensor,
+                        translation: torch.Tensor,
+                        inv_scale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """(N, in_size, out_size) f32 weights of ``jax.image``'s
+    ``compute_weight_mat`` for the triangle kernel with antialiasing, one
+    (scale, translation) pair per row of the (N,) tensors: the kernel is
+    widened by 1/scale when downscaling, weights are renormalized per output
+    sample, and samples outside [-0.5, in_size - 0.5] get no weight (the
+    black border of a padded crop). ``inv_scale``: 1/scale as the caller
+    rounded it (default: the f32 quotient)."""
+    scale = scale.float()
+    translation = translation.float()
+    inv = (1.0 / scale if inv_scale is None else inv_scale.float())[:, None]
+    kscale = torch.clamp(inv, min=1.0)[:, :, None]
+    out_idx = torch.arange(out_size, dtype=torch.float32, device=scale.device)
+    # (i + 0.5) * inv - t * inv with one rounding after the subtraction (a
+    # fused multiply-add, as XLA evaluates it): at a crop offset of a few
+    # hundred pixels one f32 step of a sample position is 3e-5 px, and a
+    # mask's edge moves the crop by as much
+    t_inv = (translation[:, None] * inv).double()
+    sample = ((out_idx[None] + 0.5).double() * inv.double()
+              - t_inv).float() - 0.5
+    in_idx = torch.arange(in_size, dtype=torch.float32, device=scale.device)
+    x = (sample[:, None, :] - in_idx[None, :, None]).abs() / kscale
+    w = torch.clamp(1.0 - x, min=0.0)
+    tot = w.sum(dim=1, keepdim=True)
+    w = torch.where(tot.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(tot != 0, tot, torch.ones_like(tot)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[:, None, :], w, torch.zeros_like(w))
+
+
+def scale_and_translate(x: torch.Tensor, out_hw: Tuple[int, int],
+                        scale: torch.Tensor, translation: torch.Tensor,
+                        inv_scale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """``jax.image.scale_and_translate(x, out, (0, 1), scale, translation,
+    "bilinear")`` per image: x (N, H, W, C), or (H, W, C) shared by every
+    image; scale, translation and the optional ``inv_scale`` (N, 2)
+    tensors, (y, x) order -> (N, oh, ow, C) in f32."""
+    h, w = x.shape[-3], x.shape[-2]
+    inv = (None, None) if inv_scale is None else (inv_scale[:, 0],
+                                                  inv_scale[:, 1])
+    wy = bilinear_weight_mat(h, out_hw[0], scale[:, 0], translation[:, 0],
+                             inv[0])
+    wx = bilinear_weight_mat(w, out_hw[1], scale[:, 1], translation[:, 1],
+                             inv[1])
+    xf = x.float()
+    if x.dim() == 3:
+        y = torch.einsum("hwc,nwq->nhqc", xf, wx)
+    else:
+        y = torch.einsum("nhwc,nwq->nhqc", xf, wx)
+    return torch.einsum("nhqc,nhp->npqc", y, wy)

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels B5 (rope_packed_attention), B6
-(masked_pool) and B1-B4 (flash, windowed and the two decoder cross
-attentions; limits beside their tests below) against their plain PyTorch
+(masked_pool), B1-B4 (flash, windowed and the two decoder cross
+attentions) and B10 (fused_attention; limits beside their tests below)
+against their plain PyTorch
 versions, on a CUDA card. These tests skip without one (the kernels have no
 CPU mode). The file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
@@ -188,3 +189,27 @@ def test_cross_i2t_tail_kernel_matches_plain(cuda_device, dtype, tol):
         got = A.cross_i2t_tail_from_keys(*args, t_len=t_len)
         ref = A.cross_i2t_tail_from_keys_plain(*args, t_len=t_len)
         assert _err(got, ref) <= tol
+
+
+# ---------------------------------------------------------------------------
+# B10 (the SigLIP image towers). Limits: 1e-4 abs in f32 (summation order);
+# bf16 1e-2: kernel and plain version both round the normalized weights to
+# bf16 before p.v, so a weight on a rounding edge can move the output one
+# bf16 step (2^-8 at |out| < 1), as for B2. The limits are those of
+# chip_smoke.py.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_fused_kernel_matches_plain(cuda_device, dtype, tol):
+    rng = np.random.default_rng(25)
+    for B, H, L, hd in ((2, 3, 729, 72), (1, 2, 1024, 128), (3, 2, 257, 80),
+                        (2, 1, 300, 16)):
+        # head-split views of a packed (B, L, 3, H, hd) projection
+        qkv = _dev(rng.standard_normal((B, L, 3, H, hd)), cuda_device, dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        for kv_len in (None, L - 100):
+            got = A.fused_attention(q, k, v, kv_len=kv_len)
+            ref = A.fused_attention_plain(q, k, v, kv_len=kv_len)
+            assert _err(got, ref) <= tol

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no ``jax`` and no ``ovo_tpu`` import
-anywhere in ``ovo_tpu_torch/`` (the SAM2 modules and the kernel wrappers
-included) or ``chip_smoke.py``; it imports and runs -- the pipeline and the
-live SAM2 mask source -- with jax, yaml and cv2 blocked; its entry points
-refuse to fall back to the CPU on their own."""
+anywhere in ``ovo_tpu_torch/`` (the SAM2 modules, the text side, the crop
+embedders and the kernel wrappers included) or ``chip_smoke.py``; it imports
+and runs -- the pipeline with a text query, the crop embedders and the live
+SAM2 mask source -- with jax, yaml and cv2 blocked; its entry points refuse
+to fall back to the CPU on their own."""
 import ast
 import os
 import subprocess
@@ -39,7 +40,11 @@ def test_no_jax_or_reference_package_imports():
     assert {f"ovo_tpu_torch/models/sam/{m}.py" for m in (
         "hiera", "neck", "prompt", "decoder", "model", "amg")} <= names
     assert {"ovo_tpu_torch/ops/attention.py", "ovo_tpu_torch/ops/masks.py",
-            "ovo_tpu_torch/ops/patchify.py"} <= names
+            "ovo_tpu_torch/ops/patchify.py", "ovo_tpu_torch/ops/similarity.py",
+            "ovo_tpu_torch/ops/resize.py"} <= names
+    assert {f"ovo_tpu_torch/models/{m}.py" for m in (
+        "clip", "text", "tokenizers", "merger", "textregion",
+        "convert_jax")} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
@@ -75,6 +80,24 @@ m = OVOSemMap(cfg, {out!r}, dataset=SyntheticWallDataset(n_frames=6),
 m.run()
 assert int(m.slam_backbone.get_map().count) > 1000
 assert len(m.ovo.active_ids()) >= 3
+# the query side: tokenizer, causal text tower, similarity
+res = m.ovo.classify_instances(["wall", "chair", "table"])
+assert len(res["classes"]) == len(m.ovo.active_ids())
+# the crop embedders: roi crops, B10's plain route, fusion, the merger
+from ovo_tpu_torch.factory import build_embedder
+frame = SyntheticWallDataset(n_frames=1)[0][1]
+_, maps, ok = CallableMaskSource(synthetic_mask_fn, 16, "cpu").get_masks(
+    frame, 0)
+for et in ("hovsg", "learned"):
+    crop = build_embedder({{"clip": {{"embed_type": et, "model_card": "tiny-test",
+                                   "mask_res": 48}}}}, device="cpu")
+    if et == "learned":
+        from ovo_tpu_torch.models.merger import init_merger
+        import torch
+        crop.merger.params = init_merger(torch.Generator().manual_seed(0),
+                                         d_model=32, depth=1)
+    d = crop.embed_masks(frame, maps, ok)
+    assert d.shape == (16, 32) and bool(d.isfinite().all())
 # the live SAM2 mask source (hiera_test): kernels B1-B4's plain versions
 from ovo_tpu_torch.factory import build_mask_source
 src = build_mask_source({{"sam": {{"precomputed": False,
@@ -122,4 +145,12 @@ def test_entry_points_refuse_silent_cpu_fallback(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_sam_mask_source({"sam_encoder": "hiera_test",
                                "image_size": 128})
+    from ovo_tpu_torch.factory import build_embedder
+    from ovo_tpu_torch.models.merger import load_merger
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_embedder({"clip": {"embed_type": "hovsg",
+                                 "model_card": "tiny-test"}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_merger(None)
     assert resolve_device("cpu").type == "cpu"

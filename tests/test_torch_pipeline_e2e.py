@@ -207,8 +207,17 @@ def test_factory_builds_textregion_and_rejects_unported(tmp_path):
     emb = build_embedder({"clip": {"embed_type": "TextRegion",
                                    "model_card": "tiny-pe"}}, device="cpu")
     assert isinstance(emb, TR) and emb.clip_dim == 32
+    from ovo_tpu_torch.models.clip import CropCLIPEmbedder
+
+    crop = build_embedder({"clip": {"embed_type": "vanilla",
+                                    "model_card": "tiny-test"}}, device="cpu")
+    assert isinstance(crop, CropCLIPEmbedder) and crop.clip_dim == 32
+    ckpt = tmp_path / "open_clip_model.safetensors"      # converter: A9
+    ckpt.write_bytes(b"")
     with pytest.raises(NotImplementedError):
-        build_embedder({"clip": {"embed_type": "vanilla"}}, device="cpu")
+        build_embedder({"clip": {"embed_type": "vanilla",
+                                 "model_card": "tiny-test",
+                                 "ckpt_path": str(ckpt)}}, device="cpu")
     from ovo_tpu_torch.models.sam.amg import AutomaticMaskSource
 
     live = build_mask_source({"sam": {"precomputed": False,

@@ -149,12 +149,12 @@ def test_routing_of_every_amg_attention():
     B1, the 45 window blocks and the decoder on B2, with head sizes B2
     takes. A pure function of the shapes (no card needed)."""
     shapes = _hiera_l_attention_shapes()
-    routes = [A.attention_route(lq, lk) for _, lq, lk, _ in shapes]
+    routes = [A.attention_route(lq, lk, hd) for _, lq, lk, hd in shapes]
     assert routes.count("flash") == 3 and routes.count("windowed") == 45
     assert [i for i, r in enumerate(routes) if r == "flash"] == [23, 33, 43]
     assert {s[3] for s in shapes} == {72}
     assert all(hd in A.WINDOWED_HEAD_DIMS for *_, hd in shapes)
-    assert A.attention_route(8, 8) == "windowed"       # decoder, hd 32
+    assert A.attention_route(8, 8, 32) == "windowed"   # decoder, hd 32
     assert 32 in A.WINDOWED_HEAD_DIMS
     assert {(n, lq, lk) for n, lq, lk, _ in shapes if lq <= 512} >= {
         (2048, 64, 64), (4096, 16, 64), (4096, 16, 16), (8192, 4, 16),
@@ -185,9 +185,15 @@ def test_wrappers_take_cpu_tensors_only(fn):
 
 
 def test_masked_attention_has_no_card_route():
+    """Causal and masked attention have no kernel: the plain route on any
+    device (the reference routes them to XLA too), launching nothing."""
+    cuda_build.reset_launch_counts()
     q = torch.zeros((1, 2, 16, 32), device="meta")
-    with pytest.raises(NotImplementedError):
-        A.dot_product_attention(q, q, q, causal=True)
+    assert A.attention_route(16, 16, 32, causal=True) == "xla"
+    assert A.attention_route(16, 16, 32, has_mask=True) == "xla"
+    out = A.dot_product_attention(q, q, q, causal=True)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert set(cuda_build.launch_counts().values()) == {0}
     qc, kc, vc = (t(a) for a in _qkv(6, 1, 2, 16, 16, 32))
     ref = A.xla_attention(qc, kc, vc, mask=torch.ones(16, 16).tril().bool())
     np.testing.assert_allclose(

@@ -105,14 +105,35 @@ def test_transformer_block_with_rope(rng, impl):
     np.testing.assert_allclose(ours.numpy(), ref, atol=ATOL)
 
 
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_transformer_block_without_rope(rng, monkeypatch, impl, causal):
+    """``attn_impl="xla"`` takes the composed plain path and never the
+    kernel routes of ``dot_product_attention``; both match JAX's XLA
+    route."""
+    p = jL.init_block(jax.random.PRNGKey(3), 64, 4)
+    blk = load_jax_params(L.Block(64, 4), np_tree(p))
+    x = rng.standard_normal((2, 37, 64)).astype(np.float32)
+    ref = np.asarray(jL.transformer_block(p, jnp.asarray(x), 4,
+                                          causal=causal, attn_impl="xla"))
+    if impl == "xla":
+        def kernel_route(*a, **k):
+            raise AssertionError("attn_impl='xla' reached a kernel route")
+        monkeypatch.setattr(L, "dot_product_attention", kernel_route)
+    ours = L.transformer_block(blk, t(x), 4, causal=causal, attn_impl=impl)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=ATOL)
+
+
 @pytest.mark.parametrize("with_rope,impl,error", [
     (True, "auto", ValueError),            # B5's wrapper: CPU or CUDA only
     (True, "xla", NotImplementedError),
-    (False, "auto", NotImplementedError),  # no RoPE: kernel B10, not ported
+    (False, "auto", ValueError),           # no RoPE: B2's wrapper (L 37)
+    (False, "xla", NotImplementedError),   # the plain route is CPU only
 ])
 def test_plain_attention_takes_cpu_tensors_only(with_rope, impl, error):
-    """Off the CPU, attention launches kernel B5 or raises: a tensor that is
-    not on the CPU never reaches the composed plain path."""
+    """Off the CPU, attention launches a kernel (B5 with RoPE, B10 / B2 /
+    B1 without) or raises: a tensor that is not on the CPU never reaches the
+    composed plain path."""
     blk = L.Block(64, 4, device="meta")
     cos, sin = L.rope2d_freqs(6, 6, 16, n_prefix=1, device="meta")
     x = torch.zeros((2, 37, 64), device="meta")
