@@ -6,10 +6,12 @@ draining, the reference's fps / spf / memory stat names, and the two-part
 ``ovo_map.ckpt`` checkpoint. Frames are read by a prefetch thread (one
 producer, one consumer) so dataset reads overlap device work.
 
-Callers pass the dataset (duck-typed: ``__getitem__`` -> (id, image u8
-(H, W, 3), depth f32 (H, W), c2w (4, 4)), ``__len__``, ``intrinsics``,
-``height``, ``width``). The viewer stream, the profiler hook, map restore
-and backbones other than ``vanilla`` come with later slices and raise here.
+The dataset is built from the config (``data/datasets.get_dataset`` of
+``dataset_name`` over the ``data`` and ``cam`` sections) unless the caller
+passes one (duck-typed: ``__getitem__`` -> (id, image u8 (H, W, 3), depth
+f32 (H, W), c2w (4, 4)), ``__len__``, ``intrinsics``, ``height``,
+``width``). The viewer stream, the profiler hook, map restore and backbones
+other than ``vanilla`` come with later slices and raise here.
 """
 from __future__ import annotations
 
@@ -39,9 +41,6 @@ class OVOSemMap:
             # metric geometry and the resize matmuls are f32: no TF32
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        if dataset is None:
-            raise NotImplementedError(
-                "dataset loaders are not ported yet; pass dataset=")
         if (config.get("vis") or {}).get("stream", False):
             raise NotImplementedError("the viewer stream is not ported yet")
         if config.get("profile_trace"):
@@ -64,6 +63,11 @@ class OVOSemMap:
 
         self.logger = Logger(self.output_path, device=self.device,
                              use_wandb=config.get("use_wandb", False))
+        if dataset is None:
+            from ..data.datasets import get_dataset
+
+            dataset = get_dataset(config["dataset_name"])(
+                {**config["data"], **config["cam"]})
         self.dataset = dataset
         cam_intrinsics = np.asarray(self.dataset.intrinsics, np.float32)
         if mask_source is None or embedder is None:

@@ -9,9 +9,12 @@ one keyframe later (``utils/async_scalar.py``); growth checks and the
 ``active_cols`` bucket need only upper bounds.
 
 Text queries and classification (``query``, ``classify_instances``) run
-after mapping. Loop closure (``update_map``), point sharding, the sharded
-query, ``sam.batch > 1``, ``debug_info`` records and ``restore_dict`` come
-with later slices and raise ``NotImplementedError`` here.
+after mapping, or on a mapper restored from a checkpoint (``eval=True``,
+``restore_dict``). ``debug_info`` keeps the per-keyframe association
+records and instance maps for the checkpoint's debug layout (a host read
+per keyframe, as in the JAX package). Loop closure (``update_map``), point
+sharding, the sharded query, ``sam.batch > 1`` and restoring a debug
+checkpoint come with later slices and raise ``NotImplementedError`` here.
 
 Pluggable backends (duck-typed):
   mask_source.get_masks(image (H, W, 3) u8 numpy, frame_id) ->
@@ -40,6 +43,20 @@ from .map_state import MapState
 _MEDOID_FUSIONS = ("l1_medoid", "cossim_medoid")
 
 
+def instance_pixel_map(fused_maps: torch.Tensor, ins_ids: torch.Tensor,
+                       keep: torch.Tensor) -> torch.Tensor:
+    """(M, H, W) fused masks + (M,) instance ids -> (H, W) i32 instance
+    map, -1 where no kept mask covers a pixel; a later slot overwrites an
+    earlier one where masks overlap."""
+    ids = torch.where(keep & (ins_ids >= 0), ins_ids,
+                      torch.full_like(ins_ids, -1))
+    cover = fused_maps & (ids >= 0)[:, None, None]
+    M = fused_maps.shape[0]
+    last = (M - 1) - torch.argmax(cover.flip(0).to(torch.uint8), dim=0)
+    return torch.where(cover.any(dim=0), ids[last],
+                       torch.full_like(last, -1)).to(torch.int32)
+
+
 class SemanticMapper:
     """Instance store + keyframe queue; drives the per-keyframe device
     work. Mirrors OVO's online surface: detect_and_track_objects,
@@ -50,14 +67,12 @@ class SemanticMapper:
                  cam_intrinsics: Optional[np.ndarray] = None,
                  eval: bool = False, mask_source=None, embedder=None,
                  device="cuda") -> None:
-        if eval:
-            raise NotImplementedError("eval-time restore is not ported yet")
-        if cam_intrinsics is None:
+        if not eval and cam_intrinsics is None:
             raise ValueError("camera intrinsics required for reconstruction")
         self.device = resolve_device(device)
         self.config = config
         self.logger = logger
-        self.cam_intrinsics = to_device(
+        self.cam_intrinsics = None if cam_intrinsics is None else to_device(
             np.asarray(cam_intrinsics, np.float32), self.device)
         self.mask_source = mask_source
         self.embedder = embedder
@@ -103,8 +118,11 @@ class SemanticMapper:
         # per-(kf, instance) descriptor record, device-resident
         self.kf_descriptors: Dict[int, tuple] = {}
 
-        if config.get("debug_info", False):
-            raise NotImplementedError("debug_info records are not ported yet")
+        # debug_info: per keyframe the matched ids and mask areas, and the
+        # per-pixel instance map, as host arrays for the debug checkpoint
+        self.debug_info = bool(config.get("debug_info", False))
+        self.kf_records: Dict[int, tuple] = {}   # kf -> (ins_ids, areas)
+        self.kf_ins_maps: Dict[int, np.ndarray] = {}
         if int(config.get("sam", {}).get("batch", 1)) > 1:
             raise NotImplementedError("sam.batch > 1 is not ported yet")
         par_cfg = config.get("parallel", {}) or {}
@@ -130,8 +148,8 @@ class SemanticMapper:
         if seg_map is None:
             print(f"No mask segmented in {frame_id}!")
             return None
-        if self.log:
-            # log runs accept syncs: the reference's exact skip-on-empty
+        if self.log or self.debug_info:
+            # log and debug runs accept syncs: the exact skip-on-empty
             if not bool(mask_valid.any()):
                 print(f"No mask segmented in {frame_id}!")
                 return None
@@ -220,6 +238,11 @@ class SemanticMapper:
             dict(ins_ids=match.ins_ids, keep=match.keep,
                  fused_maps=match.fused_maps, image=image, kf_id=self.kf_id))
         self.frame_ids.append(frame_id)
+        if self.debug_info:
+            self.kf_records[self.kf_id] = (match.ins_ids.cpu().numpy(),
+                                           match.areas.cpu().numpy())
+            self.kf_ins_maps[self.kf_id] = instance_pixel_map(
+                match.fused_maps, match.ins_ids, match.keep).cpu().numpy()
         self.kf_id += 1
 
         if self.log and self.logger is not None:
@@ -266,8 +289,10 @@ class SemanticMapper:
         if not self.unbounded_top_k:
             # the kf may have left an instance's top-k during the delay
             keep = keep & inst.is_top_kf(self.store, kf["ins_ids"], kf_t)
-        if (self.log or not self.unbounded_top_k) and not bool(keep.any()):
-            # log runs and top-k gating keep the exact skip-on-empty check
+        if (self.debug_info or self.log or not self.unbounded_top_k) \
+                and not bool(keep.any()):
+            # debug and log runs and top-k gating keep the exact
+            # skip-on-empty check
             return
         # hot path: embed optimistically -- keep=False rows are dropped by
         # update_descriptors, so an all-empty keyframe wastes one embed
@@ -296,8 +321,45 @@ class SemanticMapper:
     def update_map(self, map_state: MapState, kfs=None) -> MapState:
         raise NotImplementedError("semantic loop closure is not ported yet")
 
-    def restore_dict(self, scene_dict, debug_info: bool = False) -> None:
-        raise NotImplementedError("checkpoint restore is not ported yet")
+    def restore_dict(self, scene_dict: Dict[str, Any],
+                     debug_info: bool = False) -> None:
+        """Consume a reference-layout checkpoint dict (numpy leaves): the
+        active ids and fused descriptors, legacy ``default_<id>_*`` keys
+        included; the store grows past ``n_instances`` to the largest id.
+        Restoring the debug records (``debug_info=True``) is not ported."""
+        if debug_info:
+            raise NotImplementedError("restoring debug_info records is not "
+                                      "ported yet")
+        ids = np.asarray(scene_dict["ins_3d_ids"]).astype(np.int64)
+        if len(ids) and ids.max() >= self.n_instances:
+            self.store = init_instance_store(
+                int(ids.max()) + 1, self.clip_dim,
+                n_slots=self.store.n_slots,
+                store_slot_descs=self.fusion in _MEDOID_FUSIONS,
+                device=self.device)
+        K = self.store.capacity
+        active = np.zeros(K, bool)
+        feats = np.zeros((K, self.clip_dim), np.float32)
+        has = np.zeros(K, bool)
+        for i in ids:
+            active[i] = True
+            f = scene_dict.get(f"ins3d_{i}_clip_feature")
+            if f is None:
+                f = scene_dict.get(f"default_{i}_clip_feature")
+            if f is not None:
+                feats[i] = np.asarray(f, np.float32).reshape(-1)[
+                    :self.clip_dim]
+                has[i] = True
+        dev = self.device
+        self.store = self.store._replace(
+            active=torch.from_numpy(active).to(dev),
+            clip_feature=torch.from_numpy(feats).to(dev),
+            has_clip=torch.from_numpy(has).to(dev),
+            desc_sum=torch.from_numpy(feats.copy()).to(dev),
+            desc_cnt=torch.from_numpy(has.astype(np.int32)).to(dev),
+            n_points=torch.zeros(K, dtype=torch.int32, device=dev),
+            next_id=torch.full((), int(ids.max()) + 1 if len(ids) else 0,
+                               dtype=torch.int32, device=dev))
 
     # ------------------------------------------------------------------
     # Query / classification (after mapping: host reads are fine here)
@@ -351,10 +413,13 @@ class SemanticMapper:
                      map_dict: Optional[Dict[str, Any]] = None
                      ) -> Dict[str, Any]:
         """Reference-layout checkpoint dict: ``ins_3d_ids`` plus, per active
-        instance, ``ins3d_<id>_clip_feature`` and ``..._clip_feature_kf``."""
-        if debug_info:
-            raise NotImplementedError("debug_info checkpoints are not ported "
-                                      "yet")
+        instance, ``ins3d_<id>_clip_feature`` and ``..._clip_feature_kf``.
+        With ``debug_info`` also, per instance, ``ins3d_<id>_keyframes_ids``
+        (the keyframes it matched), ``..._points_ids`` (its points in
+        ``map_dict``) and ``..._top_kfs`` ((area, kf) pairs in heap order),
+        plus ``frame_id``, the stacked ``ins_map`` snapshots and the
+        per-(kf, instance) ``kf_<k>_ins3d_<i>_clips`` descriptors (the JAX
+        package's layout)."""
         ids = self.active_ids()
         out: Dict[str, Any] = {"ins_3d_ids": np.asarray(ids)}
         feats = self.store.clip_feature.cpu().numpy()
@@ -362,4 +427,50 @@ class SemanticMapper:
         for i in ids:
             out[f"ins3d_{i}_clip_feature"] = feats[i] if has[i] else None
             out[f"ins3d_{i}_clip_feature_kf"] = 0 if has[i] else None
+        if not debug_info:
+            return out
+
+        out["frame_id"] = np.asarray(self.frame_ids)
+        kfs_of: Dict[int, list] = {int(i): [] for i in ids}
+        tops_of: Dict[int, list] = {int(i): [] for i in ids}
+        for kf in sorted(self.kf_records):
+            rec_ids, rec_areas = self.kf_records[kf]
+            for j in np.nonzero(rec_ids >= 0)[0]:
+                i = int(rec_ids[j])
+                if i in kfs_of:
+                    kfs_of[i].append(kf)
+                    tops_of[i].append((int(rec_areas[j]), kf))
+        bounded = not self.unbounded_top_k
+        top_area = self.store.top_area.cpu().numpy() if bounded else None
+        top_kf = self.store.top_kf.cpu().numpy() if bounded else None
+        pts_ids = pts_obj = None
+        if map_dict is not None:
+            pts_ids = np.asarray(map_dict["ids"])
+            pts_obj = np.asarray(map_dict["obj_ids"])
+        for i in ids:
+            i = int(i)
+            out[f"ins3d_{i}_keyframes_ids"] = np.asarray(kfs_of[i], np.int64)
+            out[f"ins3d_{i}_points_ids"] = (
+                pts_ids[pts_obj == i] if pts_ids is not None
+                else np.zeros((0,), np.int64))
+            if bounded:
+                vs = top_area[i] >= 0
+                pairs = np.stack([top_area[i][vs], top_kf[i][vs]],
+                                 axis=1).astype(np.int64)
+                order = np.lexsort((pairs[:, 1], pairs[:, 0]))
+                out[f"ins3d_{i}_top_kfs"] = pairs[order]
+            else:
+                out[f"ins3d_{i}_top_kfs"] = np.asarray(
+                    sorted(tops_of[i]), np.int64).reshape(-1, 2)
+        out["ins_map"] = (np.stack([self.kf_ins_maps[k]
+                                    for k in sorted(self.kf_ins_maps)])
+                          if self.kf_ins_maps
+                          else np.zeros((0, 1, 1), np.int32))
+        for kf, (d_ids, d_descs, d_keep) in self.kf_descriptors.items():
+            d_ids_np = d_ids.cpu().numpy()
+            d_keep_np = d_keep.cpu().numpy()
+            d_descs_np = d_descs.cpu().numpy()
+            for j in np.nonzero(d_keep_np & (d_ids_np >= 0))[0]:
+                out[f"kf_{kf}_ins3d_{int(d_ids_np[j])}_clips"] = \
+                    d_descs_np[j]
         return out

@@ -1,5 +1,5 @@
 """Vision transformer for the PE / CLIP image towers (port of
-``ovo_tpu/models/vit.py``, non-fused branch).
+``ovo_tpu/models/vit.py``).
 
 Patchify (a stride-p convolution over HWIO weights, run as one f32 matmul
 over unfolded patches), optional class token and learned absolute position
@@ -13,10 +13,16 @@ count passed as ``kv_len`` (``vit.py:160-185``); padded rows stay row-local
 and are sliced off before ``ln_post``. Attention without RoPE (the SigLIP
 and DFN towers) goes through ``ops/attention.dot_product_attention``, at the
 SigLIP-384 length of 729 tokens kernel B10, with no padding.
+
+The whole-block path (``attn_impl="fused_block"``, or ``OVO_FUSED_BLOCK=1``
+under ``"auto"`` on the card) runs each block through kernels B12a and
+B12b (``ops/fused_block.py``); towers with LayerScale take the per-layer
+path. It needs no pad: keys past the real count are masked in the kernel.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -198,6 +204,15 @@ def forward_features(model: VisionTransformer, cfg: ViTConfig,
         rope = L.rope2d_freqs(grid, grid, hd, n_prefix=n_prefix,
                               device=x.device)
 
+    if _use_fused_blocks(attn_impl, model, x.device):
+        from ..ops.fused_block import fused_transformer_block
+
+        for blk in model.blocks:
+            x = fused_transformer_block(blk, x, cfg.n_heads, rope=rope,
+                                        act=cfg.act)
+        return model.ln_post(x) if norm else x
+    if attn_impl == "fused_block":   # LayerScale blocks: per-layer kernels
+        attn_impl = "auto"
     # pre-pad the token stream ONCE for the whole tower whenever attention
     # goes through the packed-RoPE wrapper (every RoPE layer under "auto",
     # on either device): padded keys are masked per layer via n_valid and
@@ -220,6 +235,20 @@ def forward_features(model: VisionTransformer, cfg: ViTConfig,
     if norm:
         x = model.ln_post(x)
     return x
+
+
+def _use_fused_blocks(attn_impl: str, model: VisionTransformer,
+                      device: torch.device) -> bool:
+    """The whole-block kernels: an explicit ``attn_impl="fused_block"`` on
+    either device, or ``OVO_FUSED_BLOCK=1`` under ``"auto"`` when the tokens
+    are on the card (JAX: on a TPU). LayerScale blocks never (the kernels
+    do not carry ls1 / ls2)."""
+    if len(model.blocks) and model.blocks[0].ls1 is not None:
+        return False
+    if attn_impl == "fused_block":
+        return True
+    return (attn_impl == "auto" and device.type == "cuda"
+            and os.environ.get("OVO_FUSED_BLOCK") == "1")
 
 
 def attn_pool(p: AttnPool, x: torch.Tensor, n_heads: int,

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels B5 (rope_packed_attention), B6
 (masked_pool), B1-B4 (flash, windowed and the two decoder cross
-attentions) and B10 (fused_attention; limits beside their tests below)
-against their plain PyTorch
+attentions), B10 (fused_attention) and B12a / B12b (fused_attn_block,
+fused_mlp_block; limits beside their tests below) against their plain PyTorch
 versions, on a CUDA card. These tests skip without one (the kernels have no
 CPU mode). The file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
@@ -213,3 +213,87 @@ def test_fused_kernel_matches_plain(cuda_device, dtype, tol):
             got = A.fused_attention(q, k, v, kv_len=kv_len)
             ref = A.fused_attention_plain(q, k, v, kv_len=kv_len)
             assert _err(got, ref) <= tol
+
+
+# ---------------------------------------------------------------------------
+# B12a / B12b (the whole-block tower path, OVO_FUSED_BLOCK=1). Limits: 1e-4
+# abs in f32 (sums in another order); bf16 6e-2: the outputs are x plus the
+# block half, below ~8 in magnitude here, where one bf16 step is up to
+# 2^-5, and intermediates rounded on an edge (LN, q, k, v, p, heads, hidden)
+# move them by a few 2^-8 more. The limits are those of chip_smoke.py.
+# ---------------------------------------------------------------------------
+
+from ovo_tpu_torch.ops import fused_block as FB  # noqa: E402
+
+
+def _block_weights(rng, dev, dtype, D, heads, hidden):
+    hd = D // heads
+
+    def w(*shape, std):
+        return _dev(rng.standard_normal(shape) * std, dev, dtype)
+
+    def f(*shape, std=0.1, mean=0.0):
+        return _dev(rng.standard_normal(shape) * std + mean, dev,
+                    torch.float32)
+
+    return dict(w=w(heads, D, 3 * hd, std=D ** -0.5), b=f(heads, 3 * hd),
+                ow=w(heads, hd, D, std=D ** -0.5), ob=f(D),
+                ls=f(D, mean=1.0), lb=f(D),
+                fc=w(D, hidden, std=D ** -0.5), fcb=f(hidden),
+                pw=w(hidden, D, std=hidden ** -0.5), pb=f(D))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 6e-2)])
+def test_fused_attn_block_kernel_matches_plain(cuda_device, dtype, tol):
+    rng = np.random.default_rng(26)
+    # (views, tokens, real tokens, width, heads, causal, rope): the PE
+    # shape, a causal masked block with 16-wide heads, odd lengths
+    for B, L, l_real, D, H, causal, rope in (
+            (2, 577, 577, 1024, 16, False, True),
+            (3, 150, 131, 64, 4, True, False),
+            (1, 37, 30, 192, 3, False, True)):
+        p = _block_weights(rng, cuda_device, dtype, D, H, 4 * D)
+        x = _dev(rng.standard_normal((B, L, D)), cuda_device, dtype)
+        cos = _dev(rng.standard_normal((L, D // H // 2)), cuda_device,
+                   torch.float32)
+        sin = _dev(rng.standard_normal((L, D // H // 2)), cuda_device,
+                   torch.float32)
+        args = (x, p["w"], p["b"], p["ow"], p["ob"], p["ls"], p["lb"], cos,
+                sin)
+        kw = dict(n_heads=H, L_real=l_real, causal=causal, use_rope=rope)
+        assert _err(FB.fused_attn_block(*args, **kw),
+                    FB.fused_attn_block_plain(*args, **kw)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 6e-2)])
+def test_fused_mlp_block_kernel_matches_plain(cuda_device, dtype, tol):
+    rng = np.random.default_rng(27)
+    for B, L, D, hidden, chunk, act in ((2, 577, 1024, 4096, 512, "gelu"),
+                                        (3, 150, 64, 256, 256, "quick_gelu"),
+                                        (1, 37, 192, 768, 384, "gelu")):
+        p = _block_weights(rng, cuda_device, dtype, D, 1, hidden)
+        x = _dev(rng.standard_normal((B, L, D)), cuda_device, dtype)
+        args = (x, p["fc"], p["fcb"], p["pw"], p["pb"], p["ls"], p["lb"])
+        assert _err(FB.fused_mlp_block(*args, act=act, chunk=chunk),
+                    FB.fused_mlp_block_plain(*args, act=act,
+                                             chunk=chunk)) <= tol
+
+
+@pytest.mark.cuda
+def test_fused_block_wrappers_raise_on_what_the_kernels_do_not_take(
+        cuda_device):
+    x = torch.zeros((1, 1100, 64), device=cuda_device)
+    p = _block_weights(np.random.default_rng(0), cuda_device, torch.float32,
+                       64, 4, 256)
+    z = torch.zeros((1100, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="L <= 1024"):
+        FB.fused_attn_block(x, p["w"], p["b"], p["ow"], p["ob"], p["ls"],
+                            p["lb"], z, z, n_heads=4, L_real=1100,
+                            causal=False, use_rope=False)
+    with pytest.raises(ValueError, match="f32"):
+        FB.fused_mlp_block(x[:, :8], p["fc"], p["fcb"].half(), p["pw"],
+                           p["pb"], p["ls"], p["lb"], chunk=256)

@@ -135,7 +135,7 @@ def test_pipeline_rejects_unported_options(tmp_path):
                                         device="cpu"),
               dataset=SyntheticWallDataset(n_frames=2), device="cpu")
     for key, val in (("vis", {"stream": True}), ("profile_trace", "x"),
-                     ("restore_map", True), ("debug_info", True)):
+                     ("restore_map", True)):
         bad = copy.deepcopy(cfg)
         bad[key] = val
         with pytest.raises(NotImplementedError):
@@ -144,6 +144,18 @@ def test_pipeline_rejects_unported_options(tmp_path):
     bad["slam"]["slam_module"] = "orbslam"
     with pytest.raises(NotImplementedError):
         OVOSemMap(bad, tmp_path / "orb", **kw)
+    bad = copy.deepcopy(cfg)
+    bad["semantic"].setdefault("sam", {})["batch"] = 2
+    with pytest.raises(NotImplementedError):
+        OVOSemMap(bad, tmp_path / "batch", **kw)
+    # debug_info records are kept at run time; restoring them is not ported
+    dbg = copy.deepcopy(cfg)
+    dbg["debug_info"] = True
+    pipe = OVOSemMap(dbg, tmp_path / "debug_info", **kw)
+    assert pipe.ovo.debug_info
+    with pytest.raises(NotImplementedError):
+        pipe.ovo.restore_dict({"ins_3d_ids": np.zeros((0,), np.int64)},
+                              debug_info=True)
 
 
 def test_precomputed_masks_through_factory_match_live(tmp_path):
