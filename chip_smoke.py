@@ -12,7 +12,8 @@ non-zero and prints no result):
              library times (CUDA events, median of 30 after warm-up) and the
              card's least time for the same work (B12's library column: the
              default route's block half, B5 and cuBLAS GEMMs, on the same
-             input and weights)
+             input and weights); B7, B8 and B9a / B9b at the 1280^2
+             decoder's shapes, shared and per-prompt image sides
   reference  the online pipeline on a small synthetic scene with the tiny-pe
              card, on the card (kernels) and on the CPU (plain versions):
              equal point map and instances, descriptors within cosine 1e-4
@@ -20,15 +21,29 @@ non-zero and prints no result):
              256^2 in f32, on the card (kernels) and on the CPU (plain
              versions): equal valid sets, seg maps equal but for < 0.1% of
              pixels (logits within rounding of 0), and the decoder's logits
-             for every grid prompt within 2e-5 of the largest
+             for every grid prompt within 2e-5 of the largest (its decoder
+             takes the proj_tail route: B3 / B4)
+  reference_decoder  decode_masks through each route of the two-way
+             transformer (proj_tail: B3 / B4; proj: B3 / B7 / B8; unfused:
+             B9a / B9b / B8): the hiera_test card's decoder in f32 on the
+             card and on the CPU, every output within 2e-4 of the CPU's
+             unfused route; then in bf16 at the 1280^2 AMG shape (256
+             prompts, L 6400) on the card, the routes within a bf16 limit
+             of each other; launch counts per route
   slice      OVOSemMap on a seeded 680x1200 synthetic scene with Replica
              intrinsics, precomputed-style masks (up to 96 per keyframe) and
              TextRegion on PE-Core-L14-336 at full width with random
              weights, a 2^21-point map; launch counts of every kernel
-  amg_slice  the main path: the same run with live masks from the SAM2
-             Hiera-L automatic mask generator at 1024^2 (built from the
-             config, seeded random bf16 weights, gates at 0); launch counts
-             per keyframe, host syncs in the frame loop (none allowed)
+  amg_slice  the main path: the same run (the same scene, built once) with
+             live masks from the SAM2 Hiera-L automatic mask generator at
+             1024^2 (built from the config, seeded random bf16 weights,
+             gates at 0); launch counts per keyframe, host syncs in the
+             frame loop (none allowed); the decoder takes the proj_tail
+             route (B3 3, B4 2, none of B7-B9)
+  amg1280_slice  the same with SAM2 Hiera-L at image_size 1280 (80^2 = 6400
+             image rows) on the scene's first 30 frames: the decoder takes
+             the unfused route (per segmented keyframe B9a 3, B9b 2, B8 2,
+             no B3 / B4 / B7; B1 3, B2 47), no host sync in the frame loop
   reference_crop  the crop ``hovsg`` embedder on a SigLIP-structured card
              built here (no class token, attention pooling, 224^2 / 14 = 256
              tokens, so the tower takes kernel B10; bidirectional text
@@ -37,9 +52,10 @@ non-zero and prints no result):
              cosine 1e-4, classes equal where the top-2 margin is above 1e-4
   crop_slice the paper's descriptor: the precomputed-mask slice with the
              clip section set to the learned merger over SigLIP-384 crops
-             at full width (f32, random weights), 30 frames; 81 B10 launches
-             per embedded keyframe (27 layers x the seg, bbox and global
-             views), no other kernel, no host sync in the frame loop
+             at full width (f32, random weights), the scene's first 30
+             frames; 81 B10 launches per embedded keyframe (27 layers x the
+             seg, bbox and global views), no other kernel, no host sync in
+             the frame loop
   query      classify_instances over the crop_slice's map (SigLIP-384 text
              tower, 64 tokens: 27 B2 launches per class) and over the
              slice's map (PE's causal text tower: the plain route, no
@@ -60,7 +76,8 @@ non-zero and prints no result):
              in the frame loop; a finite mIoU / mAcc; each phase's wall
   kernels    the kernels with their launch counts on the path that runs
              them: the amg_slice (B1-B6), the crop_slice (B10), the cli
-             (B12a / B12b)
+             (B12a / B12b), the amg1280_slice (B9a, B9b, B8), the
+             reference_decoder's bf16 proj route (B7)
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -134,6 +151,34 @@ AMG_KERNELS = {
 # final attention; i2t + norm4 in 2 layers
 AMG_LAUNCHES_PER_KF = {"flash_attention": 3, "windowed_attention": 47,
                        "cross_t2i": 3, "cross_i2t_tail": 2}
+# the decoder's other routes' kernels: (launch-count name, source, TPU
+# kernel)
+ROUTE_KERNELS = {
+    "cross_small_head_t2i": ("ovo_tpu_torch/csrc/cross_small_head.cu",
+                             "ovo_tpu/ops/attention.py:798"),
+    "cross_small_head_i2t": ("ovo_tpu_torch/csrc/cross_small_head.cu",
+                             "ovo_tpu/ops/attention.py:816"),
+    "residual_layer_norm": ("ovo_tpu_torch/csrc/residual_layer_norm.cu",
+                            "ovo_tpu/ops/layer_norm.py:148"),
+    "cross_i2t_proj": ("ovo_tpu_torch/csrc/cross_i2t_proj.cu",
+                       "ovo_tpu/ops/attention.py:1143"),
+}
+# at 1280^2 (L 6400) the bf16 decoder takes the unfused route: t2i in 2
+# layers + the final attention through B9a, i2t through B9b and norm4
+# through B8 in 2 layers; the trunk's launches are those of 1024^2
+AMG1280_LAUNCHES_PER_KF = {"flash_attention": 3, "windowed_attention": 47,
+                           "cross_small_head_t2i": 3,
+                           "cross_small_head_i2t": 2,
+                           "residual_layer_norm": 2}
+# launches per decode on each route of the two-way transformer (B2: the
+# token self-attention of both layers)
+ROUTE_LAUNCHES = {
+    "proj_tail": {"windowed_attention": 2, "cross_t2i": 3,
+                  "cross_i2t_tail": 2},
+    "proj": {"windowed_attention": 2, "cross_t2i": 3, "cross_i2t_proj": 2,
+             "residual_layer_norm": 2},
+    "unfused": {"windowed_attention": 2, "cross_small_head_t2i": 3,
+                "cross_small_head_i2t": 2, "residual_layer_norm": 2}}
 # the paper's descriptor (SURVEY.md section 6): SAM2 masks, SigLIP-384
 # crops (masked, bbox, global) fused by the learned merger
 CROP_CLIP = {"embed_type": "learned", "model_card": "SigLIP-384",
@@ -389,6 +434,12 @@ def _cross_inputs(dev, dtype, Bk, B=256, T=8, L=4096, D=128, dk=256):
                 b=rnd(dk, dt=torch.float32))
 
 
+def _small_head_split(t, B, heads):
+    """(B or 1, n, D) -> (B, heads, n, 16), a batch-1 side expanded."""
+    return t.reshape(t.shape[0], t.shape[1], heads, -1).transpose(
+        1, 2).expand(B, heads, t.shape[1], -1)
+
+
 def check_b3(dev, dtype, peaks, tol, Bk):
     from ovo_tpu_torch.ops.attention import (cross_t2i_from_keys,
                                              cross_t2i_from_keys_plain)
@@ -400,14 +451,9 @@ def check_b3(dev, dtype, peaks, tol, Bk):
     err = _max_err(cross_t2i_from_keys(*args),
                    cross_t2i_from_keys_plain(*args), "B3")
     # the library yardstick: SDPA on the pre-projected per-head operands
-
-    def split(t, n):
-        return t.reshape(t.shape[0], n, heads, dh).transpose(1, 2).expand(
-            B, heads, n, dh)
-
-    qh = split(x["q"], T)
-    kk = split(x["keys"] @ x["wk"] + x["pe"], L)
-    vv = split(x["keys"] @ x["wv"] + x["bv"].to(dtype), L)
+    qh = _small_head_split(x["q"], B, heads)
+    kk = _small_head_split(x["keys"] @ x["wk"] + x["pe"], B, heads)
+    vv = _small_head_split(x["keys"] @ x["wv"] + x["bv"].to(dtype), B, heads)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flops = 2.0 * B * heads * T * (L * (2 * dk + dh) + 2 * dk * dh)
     nbytes = (storage_bytes(*(x[k] for k in ("q", "keys", "wk", "wv", "pe",
@@ -431,13 +477,8 @@ def check_b4(dev, dtype, peaks, tol, Bk):
             x["bout"], x["g"], x["b"], heads)
     err = _max_err(cross_i2t_tail_from_keys(*args),
                    cross_i2t_tail_from_keys_plain(*args), "B4")
-
-    def split(t, n):
-        return t.reshape(t.shape[0], n, heads, dh).transpose(1, 2).expand(
-            B, heads, n, dh)
-
-    qq = split(x["keys"] @ x["wk"] + x["pe"], L)
-    kt, vt = split(x["q"], T), split(x["vt"], T)
+    qq = _small_head_split(x["keys"] @ x["wk"] + x["pe"], B, heads)
+    kt, vt = (_small_head_split(x[k], B, heads) for k in ("q", "vt"))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flops = (2.0 * B * L * (heads * T * (dk + 2 * dh) + D * dk + 4 * dk)
              + 2.0 * B * heads * T * dk * dh)
@@ -449,6 +490,113 @@ def check_b4(dev, dtype, peaks, tol, Bk):
                    lambda: cross_i2t_tail_from_keys_plain(*args),
                    lambda: sdpa(qq, kt, vt), nbytes, flops, peaks,
                    keys_batch=Bk, shape=[B, T, L, dk, D])
+
+
+# the 1280^2 decoder's shapes (the amg1280_slice): 256 prompts of 8 tokens,
+# 8 heads of 16, L = 80^2 image rows, keys of width 256
+B9_SHAPE = dict(B=256, T=8, L=6400, heads=8, D=128, dk=256)
+
+
+def check_b9a(dev, dtype, peaks, tol, Bk):
+    from ovo_tpu_torch.ops.attention import (
+        cross_attention_small_head, cross_attention_small_head_plain)
+
+    B, T, L, heads, D = (B9_SHAPE[k] for k in ("B", "T", "L", "heads", "D"))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((B, T, D), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((Bk, L, D), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    err = _max_err(cross_attention_small_head(q, k, v, heads),
+                   cross_attention_small_head_plain(q, k, v, heads), "B9a")
+    qh, kh, vh = (_small_head_split(t, B, heads) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return _report("cross_small_head_t2i", dtype, err, tol,
+                   lambda: cross_attention_small_head(q, k, v, heads),
+                   lambda: cross_attention_small_head_plain(q, k, v, heads),
+                   lambda: sdpa(qh, kh, vh),
+                   storage_bytes(q, k, v) + q.numel() * q.element_size(),
+                   4.0 * B * heads * T * L * (D // heads), peaks,
+                   image_batch=Bk, shape=[B, T, L, D])
+
+
+def check_b9b(dev, dtype, peaks, tol, Bq):
+    from ovo_tpu_torch.ops.attention import (
+        cross_attention_small_head, cross_attention_small_head_plain)
+
+    B, T, L, heads, D = (B9_SHAPE[k] for k in ("B", "T", "L", "heads", "D"))
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q = torch.randn((Bq, L, D), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, T, D), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    err = 0.0
+    for t_len in (None, T - 2):
+        err = max(err, _max_err(
+            cross_attention_small_head(q, k, v, heads, t_len=t_len),
+            cross_attention_small_head_plain(q, k, v, heads, t_len=t_len),
+            "B9b"))
+    qh, kh, vh = (_small_head_split(t, B, heads) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return _report("cross_small_head_i2t", dtype, err, tol,
+                   lambda: cross_attention_small_head(q, k, v, heads),
+                   lambda: cross_attention_small_head_plain(q, k, v, heads),
+                   lambda: sdpa(qh, kh, vh),
+                   storage_bytes(q, k, v) + B * L * D * q.element_size(),
+                   4.0 * B * heads * T * L * (D // heads), peaks,
+                   image_batch=Bq, shape=[B, L, T, D])
+
+
+def check_b7(dev, dtype, peaks, tol, Bk):
+    from ovo_tpu_torch.ops.attention import (cross_i2t_from_keys,
+                                             cross_i2t_from_keys_plain)
+
+    heads, dh = 8, 16
+    x = _cross_inputs(dev, dtype, Bk, B=B9_SHAPE["B"], L=B9_SHAPE["L"])
+    (B, T, D), (_, L, dk) = x["q"].shape, x["keys"].shape
+    args = (x["keys"], x["wk"], x["pe"], x["q"], x["vt"], heads)
+    err = 0.0
+    for t_len in (None, T - 2):
+        err = max(err, _max_err(cross_i2t_from_keys(*args, t_len=t_len),
+                                cross_i2t_from_keys_plain(*args,
+                                                          t_len=t_len),
+                                "B7"))
+    kt, vt = (_small_head_split(x[k], B, heads) for k in ("q", "vt"))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        # cuBLAS for the projection, then SDPA per head
+        qq = x["keys"] @ x["wk"] + x["pe"]
+        return sdpa(_small_head_split(qq, B, heads), kt, vt)
+
+    flops = (2.0 * B * heads * T * dk * dh
+             + 2.0 * B * L * heads * T * (dk + 2 * dh))
+    nbytes = (storage_bytes(*(x[k] for k in ("keys", "wk", "pe", "q", "vt")))
+              + B * L * D * x["keys"].element_size())
+    return _report("cross_i2t_proj", dtype, err, tol,
+                   lambda: cross_i2t_from_keys(*args),
+                   lambda: cross_i2t_from_keys_plain(*args), library,
+                   nbytes, flops, peaks, keys_batch=Bk,
+                   shape=[B, T, L, dk, D])
+
+
+def check_b8(dev, dtype, peaks, tol, Br):
+    from ovo_tpu_torch.ops.layer_norm import (residual_layer_norm,
+                                              residual_layer_norm_plain)
+
+    B, L, C = B9_SHAPE["B"], B9_SHAPE["L"], B9_SHAPE["dk"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((B, L, C), generator=gen, device=dev).to(dtype)
+    r = torch.randn((Br, L, C), generator=gen, device=dev).to(dtype)
+    g = torch.randn((C,), generator=gen, device=dev) * 0.1 + 1.0
+    b = torch.randn((C,), generator=gen, device=dev)
+    err = _max_err(residual_layer_norm(x, r, g, b),
+                   residual_layer_norm_plain(x, r, g, b), "B8")
+    lnorm = torch.nn.functional.layer_norm
+    return _report("residual_layer_norm", dtype, err, tol,
+                   lambda: residual_layer_norm(x, r, g, b),
+                   lambda: residual_layer_norm_plain(x, r, g, b),
+                   lambda: lnorm(x.float() + r.float(), (C,), g, b),
+                   storage_bytes(x, r, g, b) + x.numel() * x.element_size(),
+                   8.0 * B * L * C, peaks, res_batch=Br, shape=[B, L, C])
 
 
 def check_b10(dev, dtype, peaks, tol, batch):
@@ -659,6 +807,14 @@ class WallScene:
     def __getitem__(self, i):
         return self.frames[i][:4]
 
+    def head(self, n):
+        """The scene's first ``n`` frames, sharing their arrays."""
+        if n == len(self):
+            return self
+        view = copy.copy(self)
+        view.frames, view.poses = self.frames[:n], self.poses[:n]
+        return view
+
     def masks(self, frame_id, max_masks=96):
         """One mask per wall cell seen, by cell id; pad_masks keeps 96."""
         cell = self.frames[frame_id][4]
@@ -766,6 +922,107 @@ def run_reference_amg(dev) -> dict:
     return dict(valid_masks=int(v1.sum()), seg_pixels_differing=seg_diff,
                 mask_pixels_differing=bmap_diff, logit_max_abs_err=logit_err,
                 logit_max_abs=logit_scale)
+
+
+def _decoder_inputs(rng, side, dtype, dev):
+    """A random (side, side, 256) embedding and its high-res features."""
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    return rnd(side, side, 256), [rnd(4 * side, 4 * side, 32),
+                                  rnd(2 * side, 2 * side, 64)]
+
+
+def run_reference_decoder(dev, side: int = 80, grid: int = 16) -> dict:
+    """``decode_masks`` through each route of the two-way transformer.
+
+    Small: the hiera_test card's decoder (SAM2's: d 256, 8 heads) in f32 on
+    a (16, 16) embedding with 16 grid prompts, on the card (B3 / B4, B3 /
+    B7 / B8, B9a / B9b / B8) and on the CPU (plain versions): every output
+    of every route within 2e-4 of the CPU's unfused route (f32 sums in
+    other orders and algebras; 1.1e-5 on logits up to 9.7 on the CPU).
+
+    Full: the same decoder in bf16 at the 1280^2 AMG shape (``grid``^2 =
+    256 prompts, L = ``side``^2 = 6400) on the card, each route against the
+    unfused one. The routes round
+    at different places (B3 rounds q Wk^T and p keys, the unfused route kk
+    and vv), a few bf16 steps of 2^-8 through two layers: logits within 5%
+    of the largest, iou and object scores within 5e-2. The proj route's
+    decode is where kernel B7 launches (the kernels line counts it)."""
+    from ovo_tpu_torch.models.sam.amg import grid_points
+    from ovo_tpu_torch.models.sam.model import SAMModel
+    from ovo_tpu_torch.ops import cuda_build
+    from ovo_tpu_torch.ops.decoder_route import ROUTES
+
+    rng = np.random.default_rng(8)
+    cpu = SAMModel.random_init("hiera_test", 256, seed=8, device="cpu",
+                               compute_dtype="float32")
+    card = SAMModel(cpu.cfg, copy.deepcopy(cpu.params), dev)
+    embed, hr = _decoder_inputs(rng, 16, torch.float32, "cpu")
+    points = torch.from_numpy(grid_points(4))
+    keys = ("masks", "iou", "obj_score")
+    out, counts = {}, {}
+    for name, model in (("cuda", card), ("cpu", cpu)):
+        d = model.device
+        for route in ROUTES:
+            cuda_build.reset_launch_counts()
+            res = model.decode_grid(embed.to(d), [h.to(d) for h in hr],
+                                    points.to(d), mask_channels=(1, 2, 3),
+                                    route=route)
+            counts[(name, route)] = cuda_build.launch_counts()
+            out[(name, route)] = {k: res[k].cpu() for k in keys}
+    ref = out[("cpu", "unfused")]
+    small_err = {f"{n}_{r}": max(float((o[k] - ref[k]).abs().max())
+                                 for k in keys)
+                 for (n, r), o in out.items()}
+    if max(small_err.values()) > 2e-4 or not all(
+            torch.isfinite(o[k]).all() for o in out.values() for k in keys):
+        raise AssertionError(f"reference_decoder: routes differ: {small_err}")
+    for route in ROUTES:
+        expect = dict.fromkeys(cuda_build.LAUNCH_NAMES, 0)
+        expect.update(ROUTE_LAUNCHES[route])
+        if counts[("cuda", route)] != expect or set(
+                counts[("cpu", route)].values()) != {0}:
+            raise AssertionError(f"reference_decoder: {route} launched "
+                                 f"{counts[('cuda', route)]}")
+    del card, cpu
+    # the full shape, bf16, on the card only
+    model = SAMModel.random_init("hiera_test", 1280, seed=9, device=dev)
+    embed, hr = _decoder_inputs(rng, side, torch.bfloat16, dev)
+    points = torch.from_numpy(grid_points(grid)).to(dev)
+    full, full_counts, full_ms = {}, {}, {}
+    for route in ROUTES:
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        t0 = time.time()
+        res = model.decode_grid(embed, hr, points, mask_channels=(1, 2, 3),
+                                route=route)
+        torch.cuda.synchronize()
+        full_ms[route] = (time.time() - t0) * 1e3
+        full_counts[route] = cuda_build.launch_counts()
+        full[route] = {k: res[k].float() for k in keys}
+    ref = full["unfused"]
+    scale = float(ref["masks"].abs().max())
+    full_err = {r: {k: float((o[k] - ref[k]).abs().max()) for k in keys}
+                for r, o in full.items()}
+    for route, e in full_err.items():
+        expect = dict.fromkeys(cuda_build.LAUNCH_NAMES, 0)
+        expect.update(ROUTE_LAUNCHES[route])
+        if full_counts[route] != expect:
+            raise AssertionError(f"reference_decoder: {route} launched "
+                                 f"{full_counts[route]} at the full shape")
+        if not all(torch.isfinite(full[route][k]).all() for k in keys) or (
+                e["masks"] > 0.05 * scale or e["iou"] > 5e-2
+                or e["obj_score"] > 5e-2 * max(1.0, float(
+                    ref["obj_score"].abs().max()))):
+            raise AssertionError(f"reference_decoder: bf16 routes differ at "
+                                 f"the full shape: {full_err} (largest "
+                                 f"logit {scale})")
+    return dict(small_max_abs_err=small_err, full_max_abs_err=full_err,
+                full_logit_max_abs=scale, full_host_ms=full_ms,
+                launches_small=counts[("cuda", "proj")],
+                launches=full_counts["proj"])
 
 
 def smoke_siglip_card():
@@ -876,20 +1133,35 @@ class RecordingMaskSource:
         return seg, bmaps, valid
 
 
-def run_slice(dev, profile_path=None, live=False, frames=60, clip=None):
+# the seeded 680x1200 wall scene of the slices, built once per process (its
+# set-up is the smoke's largest host cost): a run of fewer frames takes the
+# first frames of the scene built
+_WALL_SCENES = []
+
+
+def replica_wall_scene(frames: int) -> WallScene:
+    if not _WALL_SCENES or len(_WALL_SCENES[0]) < frames:
+        cam = REPLICA_CONFIG["cam"]
+        _WALL_SCENES[:] = [WallScene(frames, cam["H"], cam["W"], cam["fx"],
+                                     cam["fy"], cam["cx"], cam["cy"], seed=0)]
+    return _WALL_SCENES[0].head(frames)
+
+
+def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
+              image_size=1024):
     """OVOSemMap on the 680x1200 wall scene, segmenting every 10th frame:
     precomputed-style masks from the scene, or (``live``) the SAM2 Hiera-L
-    automatic masks built from the config; ``clip`` replaces the config's
-    clip section. Returns the phase's record and the map."""
+    automatic masks built from the config at ``image_size``; ``clip``
+    replaces the config's clip section. Returns the phase's record and the
+    map."""
     from ovo_tpu_torch.data.masks import CallableMaskSource
     from ovo_tpu_torch.mapping.pipeline import OVOSemMap
     from ovo_tpu_torch.ops import cuda_build
 
-    tag = "amg_slice" if live else ("crop_slice" if clip else "slice")
-    cam = REPLICA_CONFIG["cam"]
+    tag = (("amg_slice" if image_size == 1024 else f"amg{image_size}_slice")
+           if live else ("crop_slice" if clip else "slice"))
     t0 = time.time()
-    scene = WallScene(frames, cam["H"], cam["W"], cam["fx"], cam["fy"],
-                      cam["cx"], cam["cy"], seed=0)
+    scene = replica_wall_scene(frames)
     masks = {fid: scene.masks(fid) for fid in range(0, len(scene), 10)}
     t_scene = time.time() - t0
     with tempfile.TemporaryDirectory() as tmp:
@@ -900,7 +1172,7 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None):
         # clip section given, seeded random weights, on the card); so is the
         # live mask source
         if live:
-            cfg["semantic"]["sam"] = dict(SAM_LIVE)
+            cfg["semantic"]["sam"] = dict(SAM_LIVE, image_size=image_size)
             source = None
         else:
             source = CallableMaskSource(lambda img, fid: masks[fid], 96, dev)
@@ -958,7 +1230,7 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None):
         raise AssertionError(f"{tag}: a keyframe without a valid mask: "
                              f"{valid_counts}")
     depth_layers = len(ovo.embedder.model.visual.blocks)
-    expect = {name: 0 for name in cuda_build.KERNELS}
+    expect = dict.fromkeys(cuda_build.LAUNCH_NAMES, 0)
     if clip:
         # the seg, bbox and global views each run the whole tower
         expect.update(fused_attention=3 * depth_layers * n_emb)
@@ -966,7 +1238,9 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None):
         expect.update(rope_packed_attention=depth_layers * n_emb,
                       masked_pool=n_emb)
     if live:
-        expect.update({k: v * n_seg for k, v in AMG_LAUNCHES_PER_KF.items()})
+        per_kf = (AMG_LAUNCHES_PER_KF if image_size == 1024
+                  else AMG1280_LAUNCHES_PER_KF)
+        expect.update({k: v * n_seg for k, v in per_kf.items()})
     if n_emb == 0 or counts != expect:
         raise AssertionError(f"{tag}: launches {counts}, expected {expect}")
     if loop_syncs:
@@ -1001,7 +1275,7 @@ def run_query(dev, ovo, per_class: dict) -> dict:
     res = ovo.classify_instances(QUERY_CLASSES, QUERY_TEMPLATE)
     wall = time.time() - t0
     counts = cuda_build.launch_counts()
-    expect = {name: 0 for name in cuda_build.KERNELS}
+    expect = dict.fromkeys(cuda_build.LAUNCH_NAMES, 0)
     expect.update({k: v * len(QUERY_CLASSES) for k, v in per_class.items()})
     if counts != expect:
         raise AssertionError(f"query: launches {counts}, expected {expect}")
@@ -1423,7 +1697,7 @@ def run_cli(dev, frames: int = 40) -> dict:
     ovo = rec.sem_map.ovo
     n_emb, n_seg = len(ovo.kf_descriptors), len(rec.masks.valid_counts)
     depth = len(ovo.embedder.model.visual.blocks)
-    expect = {name: 0 for name in cuda_build.KERNELS}
+    expect = dict.fromkeys(cuda_build.LAUNCH_NAMES, 0)
     expect.update(fused_attn_block=depth * n_emb,
                   fused_mlp_block=depth * n_emb, masked_pool=n_emb)
     expect.update({k: v * n_seg for k, v in AMG_LAUNCHES_PER_KF.items()})
@@ -1499,12 +1773,15 @@ def _profile_summary(prof, wall: float, path: str) -> dict:
 
 
 def main(argv) -> int:
-    """No arguments: every phase. ``--profile PATH``: only gpu, build and
-    the amg_slice three times: untraced, then with the card's activity
-    traced by torch.profiler (the busy share is read within that run, the
-    kernel table written to PATH), then untraced again."""
+    """No arguments: every phase. ``--profile PATH [--image-size N]``: only
+    gpu, build and the amg_slice (or, at 1280, the amg1280_slice) three
+    times: untraced, then with the card's activity traced by torch.profiler
+    (the busy share is read within that run, the kernel table written to
+    PATH), then untraced again."""
     profile_path = argv[argv.index("--profile") + 1] \
         if "--profile" in argv else None
+    image_size = int(argv[argv.index("--image-size") + 1]) \
+        if "--image-size" in argv else 1024
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1532,9 +1809,12 @@ def main(argv) -> int:
     if profile_path:
         # the first run carries the process's one-time costs; the traced
         # run's wall is read against the untraced run after it
-        emit("amg_slice", **run_slice(dev, live=True)[0])
-        emit("profile", **run_slice(dev, profile_path, live=True)[0])
-        emit("amg_slice", **run_slice(dev, live=True)[0])
+        kw = dict(live=True, image_size=image_size,
+                  frames=60 if image_size == 1024 else 30)
+        tag = "amg_slice" if image_size == 1024 else f"amg{image_size}_slice"
+        emit(tag, **run_slice(dev, **kw)[0])
+        emit("profile", **run_slice(dev, profile_path, **kw)[0])
+        emit(tag, **run_slice(dev, **kw)[0])
         return 0
 
     # f32: 1e-4 (the online softmax reorders the sums). bf16: the plain
@@ -1559,6 +1839,17 @@ def main(argv) -> int:
     checks += [(check_b3, f"b3_keys{bk}", 3e-2, {"Bk": bk}) for bk in (1, 256)]
     checks += [(check_b4, f"b4_keys{bk}", 6e-2, {"Bk": bk})
                for bk in (1, 256)]
+    # B9a / B9b, B7, B8 at the 1280^2 decoder's shapes, shared and per-prompt
+    # image sides. bf16: both sides round the normalized weights, so a
+    # weight on a rounding edge moves an output a step: B9a's outputs are
+    # means over 6400 rows of N(0,1) values, below 1 (step 2^-8): 1e-2; B9b's
+    # and B7's over 8 tokens, below 4 (step 2^-6): 3e-2. B8: a LayerNorm
+    # times ~1 plus an N(0,1) bias, below 8 (step 2^-5), one f32 value
+    # rounded on both sides: 6e-2.
+    checks += [(check_b9a, f"b9a_kv{b}", 1e-2, {"Bk": b}) for b in (1, 256)]
+    checks += [(check_b9b, f"b9b_q{b}", 3e-2, {"Bq": b}) for b in (1, 256)]
+    checks += [(check_b7, f"b7_keys{b}", 3e-2, {"Bk": b}) for b in (1, 256)]
+    checks += [(check_b8, f"b8_res{b}", 6e-2, {"Br": b}) for b in (1, 256)]
     # B10 in bf16: both sides round the normalized weights, as for B2: 1e-2
     checks += [(check_b10, f"b10_b{b}", 1e-2, {"batch": b})
                for b in B10_BATCHES]
@@ -1577,11 +1868,20 @@ def main(argv) -> int:
 
     emit("reference", **run_reference(dev))
     emit("reference_amg", **run_reference_amg(dev))
+    ref_dec = run_reference_decoder(dev)
+    emit("reference_decoder", **ref_dec)
+    torch.cuda.empty_cache()
     emit("reference_crop", **run_reference_crop(dev))
     pe_slice, pe_map = run_slice(dev)
     emit("slice", **pe_slice)
-    amg, _ = run_slice(dev, live=True)
+    amg = run_slice(dev, live=True)[0]
     emit("amg_slice", **amg)
+    torch.cuda.empty_cache()
+    # of the maps, only the slice's (for the query phase) stays alive across
+    # the live runs, so their peaks read their own
+    amg1280 = run_slice(dev, live=True, frames=30, image_size=1280)[0]
+    emit("amg1280_slice", **amg1280)
+    torch.cuda.empty_cache()
     crop, crop_map = run_slice(dev, frames=30, clip=CROP_CLIP)
     emit("crop_slice", **crop)
     text_depth = len(crop_map.ovo.embedder.model.text.blocks)
@@ -1596,12 +1896,17 @@ def main(argv) -> int:
     launches = dict(amg["launches"],
                     fused_attention=crop["launches"]["fused_attention"],
                     fused_attn_block=cli["launches"]["fused_attn_block"],
-                    fused_mlp_block=cli["launches"]["fused_mlp_block"])
+                    fused_mlp_block=cli["launches"]["fused_mlp_block"],
+                    cross_i2t_proj=ref_dec["launches"]["cross_i2t_proj"],
+                    **{k: amg1280["launches"][k] for k in (
+                        "cross_small_head_t2i", "cross_small_head_i2t",
+                        "residual_layer_norm")})
     emit("kernels", launches=launches)
 
     rows = []
     # per kernel, the main path's heaviest shape: B2 the stage-3 windows,
-    # B3 / B4 the per-prompt keys of the second layer
+    # B3 / B4 / B7 / B9a / B9b / B8 the per-prompt image side of the second
+    # layer
     for tag, kname, src, rep in (
             ("b5", "rope_packed_attention", B5_SOURCE, B5_REPLACES),
             ("b6", "masked_pool", B6_SOURCE, B6_REPLACES),
@@ -1613,7 +1918,14 @@ def main(argv) -> int:
              *AMG_KERNELS["cross_i2t_tail"]),
             ("b10_b96", "fused_attention", B10_SOURCE, B10_REPLACES),
             ("b12a", "fused_attn_block", B12A_SOURCE, B12A_REPLACES),
-            ("b12b", "fused_mlp_block", B12B_SOURCE, B12B_REPLACES)):
+            ("b12b", "fused_mlp_block", B12B_SOURCE, B12B_REPLACES),
+            ("b9a_kv256", "cross_small_head_t2i",
+             *ROUTE_KERNELS["cross_small_head_t2i"]),
+            ("b9b_q256", "cross_small_head_i2t",
+             *ROUTE_KERNELS["cross_small_head_i2t"]),
+            ("b8_res256", "residual_layer_norm",
+             *ROUTE_KERNELS["residual_layer_norm"]),
+            ("b7_keys256", "cross_i2t_proj", *ROUTE_KERNELS["cross_i2t_proj"])):
         # B10's path (the SigLIP-384 crops) runs in f32, the others in bf16
         r = results[(tag, "float32" if tag.startswith("b10")
                      else "bfloat16")]

@@ -1,0 +1,395 @@
+// Small-head cross attention on pre-projected operands: the SAM decoder's
+// token <-> image attention on its unfused route (heads of 16).
+//
+// Replaces: ovo_tpu/ops/attention.py cross_attention_small_head ->
+// _crossq_call / _crossq_kernel (t2i, entry ovo_cross_small_head_t2i) and
+// _crossk_call / _crossk_kernel (i2t, entry ovo_cross_small_head_i2t),
+// Pallas TPU kernels. The TPU kernels expand the short side block-diagonally
+// so that 16-wide heads fill 128 lanes; the expansion only adds exact zeros,
+// and here each head is indexed directly.
+//
+// What they compute, per prompt b and head h (dh = 16, D = heads * dh), in
+// the reference's types: s = q_h . k_h * scale in f32; p = softmax(s) in
+// f32, normalized, then rounded to the dtype; out_h = sum p v_h in f32,
+// rounded once.
+//   t2i: q (T tokens) x k, v (L image rows): the softmax runs over L.
+//   i2t: q (L image rows) x k, v (T tokens): the softmax runs over the
+//        tokens t < t_len (t >= t_len at -1e30, as the TPU kernel's pad).
+//
+// What bounds them on an H100: bytes. At the 1280^2 AMG shape (256
+// prompts, 8 heads x 8 tokens, L = 6400, D = 128, bf16), t2i with per-prompt
+// k, v reads 839 MB (0.25 ms at 3.35 TB/s) for 6.7 GFLOP; i2t reads 420 MB
+// of image rows and writes 420 MB (0.25 ms). Both do their products with f32
+// FMAs on the CUDA cores.
+//
+// Design.
+//  t2i: one block of 256 threads per (prompt, 64 token rows), row r = h * T
+//   + t. The softmax weights are rounded after normalizing, as the
+//   reference does, so the block makes two passes over 64-row tiles of the
+//   image side: the first takes each row's max and sum (k only, an online
+//   max and rescaled sum per thread, merged over the row's four threads),
+//   the second recomputes the scores, forms p rounded into shared memory
+//   and accumulates p . v. Each thread owns one row and 16 keys of a score
+//   tile (float4 reads of its head's 16 lanes), then one row and four
+//   output columns of p . v. The k / v reads of the second pass cost a
+//   third more bytes than one online pass would.
+//  i2t: one block per (prompt, 128 image rows); the prompt's tokens sit in
+//   shared memory in f32. One thread per (image row, head), the rows of one
+//   head on consecutive threads, so the token reads are broadcasts: it
+//   loads its row's 16 q values, takes the token max and sum in one online
+//   pass, then p rounded and p . v in a second, and writes its 16 outputs
+//   (one 32-byte sector in bf16).
+//  Batch-1 operands are read through a batch stride of 0: the (B, L, D)
+//  broadcast of a shared image side is never formed.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int DH = 16;       // head size
+constexpr int RB = 64;       // t2i: token rows per block
+constexpr int BK = 64;       // t2i: image rows per tile
+constexpr int LDP = BK + 1;  // t2i: p rows
+constexpr int BL = 128;      // i2t: image rows per block
+constexpr int TMAX = 64;     // tokens (the short side)
+constexpr int DMAX = 256;    // D = heads * 16
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__device__ __forceinline__ float rnd(float x) { return to_f<T>(from_f<T>(x)); }
+
+// four consecutive elements (16-byte aligned for f32, 8-byte for bf16)
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p);
+template <>
+__device__ __forceinline__ float4 load4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <>
+__device__ __forceinline__ float4 load4<__nv_bfloat16>(
+    const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float4 v);
+template <>
+__device__ __forceinline__ void store4<float>(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float dot16(const float (&q)[DH],
+                                       const float* __restrict__ k) {
+  const float4* k4 = reinterpret_cast<const float4*>(k);
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < DH / 4; ++j)
+    s = dot4(make_float4(q[4 * j], q[4 * j + 1], q[4 * j + 2], q[4 * j + 3]),
+             k4[j], s);
+  return s;
+}
+
+// (m, l) of an online softmax: fold in score s
+__device__ __forceinline__ void online(float s, float& m, float& l) {
+  const float mn = fmaxf(m, s);
+  l = l * expf(m - mn) + expf(s - mn);
+  m = mn;
+}
+
+// an image-side tile (BK rows of D) of one prompt into shared memory, f32
+template <typename T>
+__device__ __forceinline__ void load_tile(float* __restrict__ dst,
+                                          const T* __restrict__ src, int k0,
+                                          int L, int D, int LDK) {
+  const int D4 = D / 4;
+  for (int i = threadIdx.x; i < BK * D4; i += THREADS) {
+    const int r = i / D4, c = (i % D4) * 4;
+    *reinterpret_cast<float4*>(dst + r * LDK + c) =
+        k0 + r < L ? load4<T>(src + (long long)(k0 + r) * D + c)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+t2i_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, T* __restrict__ out, int NT, int heads,
+           int L, int D, float scale, long long q_sb, long long k_sb,
+           long long v_sb) {
+  const int LDK = D + 4;
+  extern __shared__ float4 smem4[];
+  float* k_s = reinterpret_cast<float*>(smem4);  // BK x LDK
+  float* v_s = k_s + BK * LDK;                    // BK x LDK
+  float* p_s = v_s + BK * LDK;                    // RB x LDP
+
+  const int b = blockIdx.x;
+  const int R = heads * NT;
+  const int tid = threadIdx.x;
+  const int rl = tid >> 2, sub = tid & 3;  // row in the block, key lane
+  const int r = blockIdx.y * RB + rl;      // row r = h * NT + t
+  const bool live = r < R;
+  const int h = live ? r / NT : 0, t = live ? r % NT : 0;
+  const T* kb = k + b * k_sb;
+  const T* vb = v + b * v_sb;
+
+  float qr[DH];
+  {
+    const T* qp = q + b * q_sb + (long long)t * D + h * DH;
+#pragma unroll
+    for (int j = 0; j < DH; j += 4) {
+      const float4 x = live ? load4<T>(qp + j) : make_float4(0.f, 0.f, 0.f,
+                                                             0.f);
+      qr[j] = x.x;
+      qr[j + 1] = x.y;
+      qr[j + 2] = x.z;
+      qr[j + 3] = x.w;
+    }
+  }
+
+  // pass 1: each row's max and sum over the L image rows
+  float m = -INFINITY, l = 0.f;
+  for (int k0 = 0; k0 < L; k0 += BK) {
+    __syncthreads();
+    load_tile<T>(k_s, kb, k0, L, D, LDK);
+    __syncthreads();
+#pragma unroll 4
+    for (int i = 0; i < BK / 4; ++i) {
+      const int kk = sub + 4 * i;
+      if (k0 + kk < L)
+        online(dot16(qr, k_s + kk * LDK + h * DH) * scale, m, l);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m, off);
+    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
+    const float mn = fmaxf(m, mo);
+    l = l * expf(m - mn) + lo * expf(mo - mn);
+    m = mn;
+  }
+
+  // pass 2: p normalized and rounded, then p . v
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int c0 = 4 * sub;  // this thread's output columns c0 .. c0 + 3
+  for (int k0 = 0; k0 < L; k0 += BK) {
+    __syncthreads();
+    load_tile<T>(k_s, kb, k0, L, D, LDK);
+    load_tile<T>(v_s, vb, k0, L, D, LDK);
+    __syncthreads();
+#pragma unroll 4
+    for (int i = 0; i < BK / 4; ++i) {
+      const int kk = sub + 4 * i;
+      float p = 0.f;
+      if (k0 + kk < L) {
+        const float s = dot16(qr, k_s + kk * LDK + h * DH) * scale;
+        p = rnd<T>(expf(s - m) / l);
+      }
+      p_s[rl * LDP + kk] = p;
+    }
+    __syncthreads();
+    const float* vcol = v_s + h * DH + c0;
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      const float p = p_s[rl * LDP + kk];
+      const float4 x = *reinterpret_cast<const float4*>(vcol + kk * LDK);
+      acc.x = fmaf(p, x.x, acc.x);
+      acc.y = fmaf(p, x.y, acc.y);
+      acc.z = fmaf(p, x.z, acc.z);
+      acc.w = fmaf(p, x.w, acc.w);
+    }
+  }
+  if (live)
+    store4<T>(out + ((long long)b * NT + t) * D + h * DH + c0, acc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+i2t_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, T* __restrict__ out, int NT, int t_len,
+           int heads, int L, int D, float scale, long long q_sb,
+           long long t_sb) {
+  extern __shared__ float4 smem4[];
+  float* kt_s = reinterpret_cast<float*>(smem4);  // NT x D
+  float* vt_s = kt_s + NT * D;                     // NT x D
+  const int b = blockIdx.y;
+  const int l0 = blockIdx.x * BL;
+  const T* kb = k + b * t_sb;
+  const T* vb = v + b * t_sb;
+  for (int i = threadIdx.x; i < NT * D; i += THREADS) {
+    kt_s[i] = to_f<T>(kb[i]);
+    vt_s[i] = to_f<T>(vb[i]);
+  }
+  __syncthreads();
+
+  const T* qb = q + b * q_sb;
+  T* ob = out + (long long)b * L * D;
+  for (int item = threadIdx.x; item < BL * heads; item += THREADS) {
+    const int h = item / BL, l = l0 + item % BL;
+    if (l >= L) continue;
+    float qr[DH];
+    const T* qp = qb + (long long)l * D + h * DH;
+#pragma unroll
+    for (int j = 0; j < DH; j += 4) {
+      const float4 x = load4<T>(qp + j);
+      qr[j] = x.x;
+      qr[j + 1] = x.y;
+      qr[j + 2] = x.z;
+      qr[j + 3] = x.w;
+    }
+    float m = -INFINITY, sum = 0.f;
+    for (int t = 0; t < NT; ++t) {
+      const float s =
+          t < t_len ? dot16(qr, kt_s + t * D + h * DH) * scale : -1e30f;
+      online(s, m, sum);
+    }
+    float a[DH];
+#pragma unroll
+    for (int j = 0; j < DH; ++j) a[j] = 0.f;
+    for (int t = 0; t < NT; ++t) {
+      const float s =
+          t < t_len ? dot16(qr, kt_s + t * D + h * DH) * scale : -1e30f;
+      const float p = rnd<T>(expf(s - m) / sum);
+      const float4* v4 = reinterpret_cast<const float4*>(vt_s + t * D +
+                                                         h * DH);
+#pragma unroll
+      for (int j = 0; j < DH / 4; ++j) {
+        const float4 x = v4[j];
+        a[4 * j] = fmaf(p, x.x, a[4 * j]);
+        a[4 * j + 1] = fmaf(p, x.y, a[4 * j + 1]);
+        a[4 * j + 2] = fmaf(p, x.z, a[4 * j + 2]);
+        a[4 * j + 3] = fmaf(p, x.w, a[4 * j + 3]);
+      }
+    }
+    T* op = ob + (long long)l * D + h * DH;
+#pragma unroll
+    for (int j = 0; j < DH; j += 4)
+      store4<T>(op + j, make_float4(a[j], a[j + 1], a[j + 2], a[j + 3]));
+  }
+}
+
+bool bad_shape(int B, int NT, int heads, int L, int D) {
+  return B < 1 || NT < 1 || NT > TMAX || heads < 1 || L < 1 ||
+         D != heads * DH || D > DMAX;
+}
+
+}  // namespace
+
+// t2i: q (B or 1, NT, D) at q_sb elements per batch (0 = shared), k and v
+// (B or 1, L, D) at k_sb / v_sb; out (B, NT, D). D = heads * 16 <= 256,
+// NT <= 64, 16-byte aligned pointers. dtype: 0 = float32, 1 = bfloat16.
+// Returns the cudaError_t of the launch.
+extern "C" int ovo_cross_small_head_t2i(const void* q, const void* k,
+                                        const void* v, void* out, int B,
+                                        int NT, int heads, int L, int D,
+                                        float scale, long long q_sb,
+                                        long long k_sb, long long v_sb,
+                                        int dtype, void* stream) {
+  if (bad_shape(B, NT, heads, L, D)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(float) * (2 * BK * (D + 4) + RB * LDP);
+  dim3 grid(B, (heads * NT + RB - 1) / RB);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = cudaFuncSetAttribute(t2i_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    t2i_kernel<float><<<grid, THREADS, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), NT, heads, L,
+        D, scale, q_sb, k_sb, v_sb);
+  } else if (dtype == 1) {
+    typedef __nv_bfloat16 bf;
+    err = cudaFuncSetAttribute(t2i_kernel<bf>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    t2i_kernel<bf><<<grid, THREADS, smem, s>>>(
+        static_cast<const bf*>(q), static_cast<const bf*>(k),
+        static_cast<const bf*>(v), static_cast<bf*>(out), NT, heads, L, D,
+        scale, q_sb, k_sb, v_sb);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// i2t: q (B or 1, L, D) at q_sb; k and v (B or 1, NT, D) at t_sb; out (B, L,
+// D). Tokens t >= t_len are masked. Limits as t2i.
+extern "C" int ovo_cross_small_head_i2t(const void* q, const void* k,
+                                        const void* v, void* out, int B,
+                                        int NT, int t_len, int heads, int L,
+                                        int D, float scale, long long q_sb,
+                                        long long t_sb, int dtype,
+                                        void* stream) {
+  if (bad_shape(B, NT, heads, L, D) || t_len < 1 || t_len > NT)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(float) * 2 * NT * D;
+  dim3 grid((L + BL - 1) / BL, B);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = cudaFuncSetAttribute(i2t_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    i2t_kernel<float><<<grid, THREADS, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), NT, t_len,
+        heads, L, D, scale, q_sb, t_sb);
+  } else if (dtype == 1) {
+    typedef __nv_bfloat16 bf;
+    err = cudaFuncSetAttribute(i2t_kernel<bf>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    i2t_kernel<bf><<<grid, THREADS, smem, s>>>(
+        static_cast<const bf*>(q), static_cast<const bf*>(k),
+        static_cast<const bf*>(v), static_cast<bf*>(out), NT, t_len, heads,
+        L, D, scale, q_sb, t_sb);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

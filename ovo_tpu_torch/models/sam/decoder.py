@@ -2,15 +2,27 @@
 transformer, the upscaling chain and the hypernetwork heads; every prompt of
 a keyframe decodes in one batched pass.
 
-The two-way transformer takes the reference's projection-fused route: the
-token self-attention runs through kernel B2, token -> image attention and
-the final attention through kernel B3 (``cross_t2i_from_keys``), and image
--> token attention with its out-projection, keys residual and norm4 through
-kernel B4 (``cross_i2t_tail_from_keys``). The image side enters with batch
-1: the first layer reads the shared image embedding through a batch stride
-of 0, and the keys become per prompt at the first norm4. The reference's
-other routes (``_img_side_proj``, ``_attn_core``, ``_i2t_proj``,
-``_norm4``) lead to kernels B7-B9 and are not on this path.
+The token self-attention runs through kernel B2. The cross attentions take
+one of the reference's three routes, chosen by its own predicates
+(``ops/decoder_route.decoder_route``; the routes round differently in
+bf16, so the port runs the reference's route at every configuration):
+
+  - ``"proj_tail"`` (SAM2 at 1024^2 in bf16): token -> image attention and
+    the final attention through kernel B3 (``cross_t2i_from_keys``), image
+    -> token attention with its out-projection, keys residual and norm4
+    through kernel B4 (``cross_i2t_tail_from_keys``);
+  - ``"proj"`` (reached by no shape of a SAM decoder; driven by name): t2i
+    through B3, image -> token attention through kernel B7
+    (``cross_i2t_from_keys``), norm4 through kernel B8
+    (``residual_layer_norm``);
+  - ``"unfused"`` (1280^2, or any f32 decoder): the image side projected
+    with plain matmuls (``_img_side_proj``), token <-> image attention
+    through kernels B9a / B9b (``cross_attention_small_head``, in
+    ``_attn_core``), norm4 through B8.
+
+The image side enters with batch 1: the first layer reads the shared image
+embedding through a batch stride of 0, and the keys become per prompt at
+the first norm4.
 """
 from __future__ import annotations
 
@@ -18,8 +30,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ...ops.attention import (cross_i2t_tail_from_keys, cross_t2i_from_keys,
+from ...ops.attention import (cross_attention_small_head, cross_i2t_from_keys,
+                              cross_i2t_tail_from_keys, cross_t2i_from_keys,
                               dot_product_attention)
+from ...ops.decoder_route import ROUTES, decoder_route
+from ...ops.layer_norm import residual_layer_norm
 from ..layers import gelu
 from .hiera import lin, mlp, norm
 from .params import Init
@@ -103,6 +118,44 @@ def _self_attn(p: Params, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return lin(p["out"], o.transpose(1, 2).reshape(B, T, internal))
 
 
+def _attn_core(p_out: Params, qq: torch.Tensor, kk: torch.Tensor,
+               vv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Attention on pre-projected operands (batch B or 1) and its
+    out-projection: token <-> image through kernels B9a / B9b, two short
+    sides through :func:`dot_product_attention`."""
+    B = max(qq.shape[0], kk.shape[0])
+    Lq, Lk, internal = qq.shape[1], kk.shape[1], qq.shape[-1]
+    if (Lq <= 64) != (Lk <= 64):
+        return lin(p_out, cross_attention_small_head(qq, kk, vv, heads))
+    hd = internal // heads
+
+    def heads_of(t, n):
+        return t.reshape(t.shape[0], n, heads, hd).transpose(1, 2).expand(
+            B, heads, n, hd)
+
+    o = dot_product_attention(heads_of(qq, Lq), heads_of(kk, Lk),
+                              heads_of(vv, Lk))
+    return lin(p_out, o.transpose(1, 2).reshape(B, Lq, internal))
+
+
+def _img_side_proj(t2i: Params, keys: torch.Tensor, image_pe: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The unfused route's image-side kk / vv for t2i: (keys + pe) Wk + bk
+    == keys Wk + (pe Wk + bk), so the big matmuls run on the raw keys and
+    the positional term stays batch 1."""
+    kk = keys @ t2i["k"]["w"].to(keys.dtype) + lin(t2i["k"], image_pe)
+    vv = keys @ t2i["v"]["w"].to(keys.dtype)
+    if t2i["v"].get("b") is not None:
+        vv = vv + t2i["v"]["b"].to(vv.dtype)
+    return kk, vv
+
+
+def _t2i_unfused(t2i: Params, q: torch.Tensor, keys: torch.Tensor,
+                 image_pe: torch.Tensor, heads: int) -> torch.Tensor:
+    kk, vv = _img_side_proj(t2i, keys, image_pe)
+    return _attn_core(t2i["out"], lin(t2i["q"], q), kk, vv, heads)
+
+
 def _t2i_proj(t2i: Params, q: torch.Tensor, keys: torch.Tensor,
               image_pe: torch.Tensor, heads: int) -> torch.Tensor:
     """Token -> image cross attention, image-side projections in kernel B3:
@@ -132,6 +185,32 @@ def _i2t_tail(i2t: Params, norm4: Params, q: torch.Tensor,
         i2t["out"]["w"], bout, norm4["scale"], norm4["bias"], heads)
 
 
+def _i2t_proj(i2t: Params, q: torch.Tensor, queries: torch.Tensor,
+              keys: torch.Tensor, image_pe: torch.Tensor, heads: int
+              ) -> torch.Tensor:
+    """Image -> token cross attention with the image-side qq in kernel B7,
+    then the out-projection."""
+    pe_q = lin(i2t["q"], image_pe)
+    o = cross_i2t_from_keys(keys, i2t["q"]["w"], pe_q, lin(i2t["k"], q),
+                            lin(i2t["v"], queries), heads)
+    return lin(i2t["out"], o)
+
+
+def _i2t_unfused(i2t: Params, q: torch.Tensor, queries: torch.Tensor,
+                 keys: torch.Tensor, image_pe: torch.Tensor, heads: int
+                 ) -> torch.Tensor:
+    qq = keys @ i2t["q"]["w"].to(keys.dtype) + lin(i2t["q"], image_pe)
+    return _attn_core(i2t["out"], qq, lin(i2t["k"], q), lin(i2t["v"], queries),
+                      heads)
+
+
+def _norm4(p: Params, attn_out: torch.Tensor, keys: torch.Tensor
+           ) -> torch.Tensor:
+    """The image-side residual + LayerNorm through kernel B8; a batch-1
+    keys residual (first layer) is read, never broadcast in memory."""
+    return residual_layer_norm(attn_out, keys, p["scale"], p["bias"])
+
+
 def _mlp3(p: Params, x: torch.Tensor, sigmoid_out: bool = False
           ) -> torch.Tensor:
     x = torch.relu(lin(p["l0"], x))
@@ -142,10 +221,20 @@ def _mlp3(p: Params, x: torch.Tensor, sigmoid_out: bool = False
 
 def two_way_transformer(params: Params, tokens: torch.Tensor,
                         image: torch.Tensor, image_pe: torch.Tensor,
-                        heads: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+                        heads: int = 8, *, route: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, T, d) queries; image (1 or B, L, d) keys; image_pe
     (1, L, d). Returns (tokens, image) after the two-way layers and the final
-    token -> image attention."""
+    token -> image attention. ``route`` (one of ``ROUTES``) forces a route;
+    by default :func:`decoder_route` picks the reference's."""
+    if route is None:
+        di = params["layers"][0]["cross_t2i"]["k"]["w"].shape[1]
+        route = decoder_route(tokens.shape[1], image.shape[1], di,
+                              image.shape[-1], heads,
+                              tokens.dtype.itemsize)
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} is not one of {ROUTES}")
+    t2i = _t2i_unfused if route == "unfused" else _t2i_proj
     q_pe = tokens  # the token embeddings double as their positional code
     queries, keys = tokens, image
     for i, layer in enumerate(params["layers"]):
@@ -160,16 +249,22 @@ def two_way_transformer(params: Params, tokens: torch.Tensor,
                                            heads)
         queries = norm(layer["norm1"], queries)
         q = queries + q_pe
-        attn_out = _t2i_proj(layer["cross_t2i"], q, keys, image_pe, heads)
+        attn_out = t2i(layer["cross_t2i"], q, keys, image_pe, heads)
         queries = norm(layer["norm2"], queries + attn_out)
         queries = norm(layer["norm3"],
                        queries + mlp(layer["mlp"], queries, act=torch.relu))
         # q is recomputed from the post-MLP queries (the two-way block)
         q = queries + q_pe
-        keys = _i2t_tail(layer["cross_i2t"], layer["norm4"], q, queries,
-                         keys, image_pe, heads)
+        if route == "proj_tail":
+            keys = _i2t_tail(layer["cross_i2t"], layer["norm4"], q, queries,
+                             keys, image_pe, heads)
+        else:
+            i2t = _i2t_unfused if route == "unfused" else _i2t_proj
+            attn_out = i2t(layer["cross_i2t"], q, queries, keys, image_pe,
+                           heads)
+            keys = _norm4(layer["norm4"], attn_out, keys)
     q = queries + q_pe
-    attn_out = _t2i_proj(params["final_attn"], q, keys, image_pe, heads)
+    attn_out = t2i(params["final_attn"], q, keys, image_pe, heads)
     queries = norm(params["norm_final"], queries + attn_out)
     return queries, keys
 
@@ -191,7 +286,8 @@ def decode_masks(params: Params, image_embed: torch.Tensor,
                  high_res_feats: Optional[List[torch.Tensor]] = None,
                  heads: int = 8,
                  mask_channels: Optional[Tuple[int, ...]] = None,
-                 top_prompts: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                 top_prompts: Optional[int] = None, *,
+                 route: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """One batched decoding pass.
 
     image_embed (H, W, d) shared stride-16 embedding; image_pe (H, W, d);
@@ -199,7 +295,8 @@ def decode_masks(params: Params, image_embed: torch.Tensor,
     up1)]; mask_channels: the mask tokens to rasterize (AMG: (1, 2, 3));
     top_prompts: when set (< B), only the top_prompts prompts by max-channel
     predicted IoU pay the upscale tail, in ascending prompt order (exactly
-    the ungated output restricted to them, ``prompt_sel``).
+    the ungated output restricted to them, ``prompt_sel``); route: the
+    two-way transformer's route (default: the reference's choice).
 
     Returns {"masks": (B', C, 4H, 4W) f32 logits, "iou": (B', C),
     "obj_score": (B',), "prompt_sel": (B',)}."""
@@ -214,7 +311,8 @@ def decode_masks(params: Params, image_embed: torch.Tensor,
     # the image side enters batch-1: the first layer reads it once
     src = image_embed.reshape(1, H * W, d)
     pe = image_pe.reshape(1, H * W, d).to(cdtype)
-    queries, keys = two_way_transformer(params, tokens, src, pe, heads)
+    queries, keys = two_way_transformer(params, tokens, src, pe, heads,
+                                        route=route)
 
     obj_token = queries[:, 0]
     iou_token = queries[:, 1]

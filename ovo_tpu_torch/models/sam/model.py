@@ -128,11 +128,13 @@ class SAMModel:
 
     def decode_grid(self, image_embed: torch.Tensor,
                     high_res: List[torch.Tensor], points01: torch.Tensor,
-                    mask_channels=None, top_prompts=None
+                    mask_channels=None, top_prompts=None, *,
+                    route: Optional[str] = None
                     ) -> Dict[str, torch.Tensor]:
         """Batched single-point prompts: points01 (P, 2) in [0, 1] -> masks
         (P', C, H4, W4) logits + iou (P', C) over ``mask_channels`` (P' =
-        top_prompts when the predicted-IoU gate is active)."""
+        top_prompts when the predicted-IoU gate is active); ``route``
+        forces the decoder's route (``decoder.decode_masks``)."""
         H, W, _ = image_embed.shape
         P = points01.shape[0]
         sparse = encode_points(
@@ -142,4 +144,4 @@ class SAMModel:
         return decode_masks(self.params["decoder"], image_embed, image_pe,
                             sparse, high_res_feats=high_res,
                             mask_channels=mask_channels,
-                            top_prompts=top_prompts)
+                            top_prompts=top_prompts, route=route)

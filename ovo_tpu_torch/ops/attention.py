@@ -1,5 +1,5 @@
 """Attention for the towers and the SAM decoder: plain references and the
-hand-written kernels B1-B5 and B10.
+hand-written kernels B1-B5, B7, B9a / B9b and B10.
 
 Port of the parts of ``ovo_tpu/ops/attention.py`` the port's slices run:
 
@@ -12,8 +12,11 @@ Port of the parts of ``ovo_tpu/ops/attention.py`` the port's slices run:
     and ``windowed_fused_attention`` (B2, ``:395``) behind
     ``dot_product_attention``, for the CLIP / SigLIP towers, the Hiera trunk,
     the text towers and the decoder's token self-attention;
-  - ``cross_t2i_from_keys`` (B3, ``:1120``) and ``cross_i2t_tail_from_keys``
-    (B4, ``:1075``): the decoder's projection-fused cross attentions.
+  - ``cross_t2i_from_keys`` (B3, ``:1120``), ``cross_i2t_tail_from_keys``
+    (B4, ``:1075``) and ``cross_i2t_from_keys`` (B7, ``:1143``): the
+    decoder's projection-fused cross attentions;
+  - ``cross_attention_small_head`` (B9a t2i / B9b i2t, ``:1166``): the
+    decoder's token <-> image attention on pre-projected operands.
 
 Every kernel wrapper launches its kernel (``csrc/<name>.cu``) on a CUDA
 tensor, or raises on what the kernel does not take; on a CPU tensor it runs
@@ -482,22 +485,16 @@ def cross_t2i_from_keys(q_proj: torch.Tensor, keys: torch.Tensor,
     return out
 
 
-def cross_i2t_tail_from_keys_plain(keys: torch.Tensor, wq: torch.Tensor,
-                                   pe_q: torch.Tensor, kk_tok: torch.Tensor,
-                                   vv_tok: torch.Tensor, wout: torch.Tensor,
-                                   bout: torch.Tensor,
-                                   ln_scale: torch.Tensor,
-                                   ln_bias: torch.Tensor, heads: int,
-                                   eps: float = 1e-5,
-                                   t_len: Optional[int] = None
-                                   ) -> torch.Tensor:
-    """Plain PyTorch version of kernel B4 (``_crossk_proj_ln_kernel``), in
-    the reference's types: kq = k_h Wq_h^T rounded; s = (kq keys^T + k_h
+def cross_i2t_from_keys_plain(keys: torch.Tensor, wq: torch.Tensor,
+                              pe_q: torch.Tensor, kk_tok: torch.Tensor,
+                              vv_tok: torch.Tensor, heads: int,
+                              t_len: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel B7 (``_crossk_proj_kernel``), in the
+    reference's types: kq = k_h Wq_h^T rounded; s = (kq keys^T + k_h
     pe_q_h^T) * scale in f32, tokens >= t_len at -1e30; softmax over the
-    tokens of each head, p rounded; attn = p v rounded; y = attn Wout + bout
-    rounded; LayerNorm(y + keys) in f32, output in keys' dtype."""
+    tokens of each head, p rounded; out = p v in f32, in keys' dtype."""
     dt = keys.dtype
-    L, dk = keys.shape[1], keys.shape[2]
+    L = keys.shape[1]
     Bt, T, D = kk_tok.shape
     B = max(keys.shape[0], Bt)
     dh = D // heads
@@ -513,7 +510,25 @@ def cross_i2t_tail_from_keys_plain(keys: torch.Tensor, wq: torch.Tensor,
     p = torch.softmax(s, dim=2).to(dt).float()               # (B, h, T, L)
     vh = vv_tok.float().reshape(Bt, T, heads, dh).expand(B, T, heads, dh)
     attn = torch.einsum("bhtl,bthj->blhj", p, vh).reshape(B, L, D)
-    attn = attn.to(dt).float()
+    return attn.to(dt)
+
+
+def cross_i2t_tail_from_keys_plain(keys: torch.Tensor, wq: torch.Tensor,
+                                   pe_q: torch.Tensor, kk_tok: torch.Tensor,
+                                   vv_tok: torch.Tensor, wout: torch.Tensor,
+                                   bout: torch.Tensor,
+                                   ln_scale: torch.Tensor,
+                                   ln_bias: torch.Tensor, heads: int,
+                                   eps: float = 1e-5,
+                                   t_len: Optional[int] = None
+                                   ) -> torch.Tensor:
+    """Plain PyTorch version of kernel B4 (``_crossk_proj_ln_kernel``), in
+    the reference's types: attn as :func:`cross_i2t_from_keys_plain`
+    (rounded); y = attn Wout + bout rounded; LayerNorm(y + keys) in f32,
+    output in keys' dtype."""
+    dt = keys.dtype
+    attn = cross_i2t_from_keys_plain(keys, wq, pe_q, kk_tok, vv_tok, heads,
+                                     t_len).float()
     y = torch.matmul(attn, wout.to(dt).float()) + bout.float()
     x = y.to(dt).float() + keys.float()
     mean = x.mean(dim=-1, keepdim=True)
@@ -521,6 +536,50 @@ def cross_i2t_tail_from_keys_plain(keys: torch.Tensor, wq: torch.Tensor,
     var = (cen * cen).mean(dim=-1, keepdim=True)
     out = cen * torch.rsqrt(var + eps) * ln_scale.float() + ln_bias.float()
     return out.to(dt)
+
+
+def _check_i2t_shapes(name, keys, wq, pe_q, kk_tok, vv_tok, heads, t_len):
+    """The shape checks of B4 and B7 on any device: returns (T, D, t_len)."""
+    if keys.dim() != 3 or kk_tok.dim() != 3 or kk_tok.shape != vv_tok.shape:
+        raise ValueError(f"{name}: keys (B, L, dk) and kk_tok == vv_tok (B, "
+                         f"T, D) shapes expected")
+    L, dk = keys.shape[1], keys.shape[2]
+    T, D = kk_tok.shape[1], kk_tok.shape[2]
+    tl = T if t_len is None else int(t_len)
+    if (D % heads or wq.shape != (dk, D) or pe_q.numel() != L * D
+            or not 1 <= tl <= T):
+        raise ValueError(f"{name}: inconsistent shapes keys "
+                         f"{tuple(keys.shape)}, tokens {tuple(kk_tok.shape)}, "
+                         f"wq {tuple(wq.shape)}, heads {heads}, t_len {tl}")
+    return T, D, tl
+
+
+def _i2t_kernel_operands(name, keys, wq, pe_q, kk_tok, vv_tok, heads):
+    """The card-side checks of B4 and B7 and the operands they share: (B,
+    device, dtype, wq and pe_q in the dtype, the scratch in which the
+    kernels form k_tok Wq^T once per prompt)."""
+    dev, dt = _check_device_tensors(name, (keys, kk_tok, vv_tok))
+    L, dk = keys.shape[1], keys.shape[2]
+    T, D = kk_tok.shape[1], kk_tok.shape[2]
+    if (T > CROSS_MAX_TOKENS or heads * T > CROSS_MAX_ROWS or dk % 16
+            or dk > CROSS_MAX_DK or (D // heads) % 4):
+        raise ValueError(f"{name} takes T <= {CROSS_MAX_TOKENS}, "
+                         f"heads*T <= {CROSS_MAX_ROWS}, dk % 16 == 0, dk <= "
+                         f"{CROSS_MAX_DK}, head size % 4 == 0; got T={T}, "
+                         f"heads={heads}, dk={dk}, D={D}")
+    B = max(keys.shape[0], kk_tok.shape[0])
+    _check_cross_batches(name, B, keys, kk_tok, vv_tok)
+    if _batch_stride(kk_tok) != _batch_stride(vv_tok):
+        raise ValueError(f"{name}: kk_tok and vv_tok need one batch stride")
+    if keys.data_ptr() % 16:
+        raise ValueError(f"{name}: keys must be 16-byte aligned")
+    wq = wq.to(dt).contiguous()
+    pe = pe_q.to(dt).reshape(L, D).contiguous()
+    if wq.device != dev or pe.device != dev:
+        raise ValueError(f"{name}: weights must be on {dev}")
+    kq = torch.empty((B if kk_tok.shape[0] > 1 else 1, heads * T, dk),
+                     dtype=dt, device=dev)
+    return B, dev, dt, wq, pe, kq
 
 
 def cross_i2t_tail_from_keys(keys: torch.Tensor, wq: torch.Tensor,
@@ -538,47 +597,26 @@ def cross_i2t_tail_from_keys(keys: torch.Tensor, wq: torch.Tensor,
 
     CPU tensors run :func:`cross_i2t_tail_from_keys_plain`; CUDA tensors
     launch kernel B4 (``csrc/cross_i2t_tail.cu``) or raise."""
-    if keys.dim() != 3 or kk_tok.dim() != 3 or kk_tok.shape != vv_tok.shape:
-        raise ValueError("keys (B, L, dk) and kk_tok == vv_tok (B, T, D) "
-                         "shapes expected")
+    T, D, tl = _check_i2t_shapes("cross_i2t_tail_from_keys", keys, wq, pe_q,
+                                 kk_tok, vv_tok, heads, t_len)
     L, dk = keys.shape[1], keys.shape[2]
-    Bt, T, D = kk_tok.shape
-    B = max(keys.shape[0], Bt)
-    tl = T if t_len is None else int(t_len)
-    if (D % heads or wq.shape != (dk, D) or wout.shape != (D, dk)
-            or pe_q.numel() != L * D or not 1 <= tl <= T
-            or any(t.shape != (dk,) for t in (bout, ln_scale, ln_bias))):
-        raise ValueError(f"cross_i2t_tail_from_keys: inconsistent shapes keys "
-                         f"{tuple(keys.shape)}, tokens {tuple(kk_tok.shape)}, "
-                         f"wq {tuple(wq.shape)}, wout {tuple(wout.shape)}, "
-                         f"t_len {tl}")
+    if wout.shape != (D, dk) or any(t.shape != (dk,)
+                                    for t in (bout, ln_scale, ln_bias)):
+        raise ValueError(f"cross_i2t_tail_from_keys: wout {tuple(wout.shape)}"
+                         f" must be ({D}, {dk}), bout / ln_scale / ln_bias "
+                         f"({dk},)")
     if keys.device.type == "cpu":
         return cross_i2t_tail_from_keys_plain(
             keys, wq, pe_q, kk_tok, vv_tok, wout, bout, ln_scale, ln_bias,
             heads, eps=eps, t_len=t_len)
-    dev, dt = _check_device_tensors("cross_i2t_tail", (keys, kk_tok, vv_tok))
-    if (T > CROSS_MAX_TOKENS or heads * T > CROSS_MAX_ROWS or dk % 16
-            or dk > CROSS_MAX_DK or (D // heads) % 4):
-        raise ValueError(f"cross_i2t_tail takes T <= {CROSS_MAX_TOKENS}, "
-                         f"heads*T <= {CROSS_MAX_ROWS}, dk % 16 == 0, dk <= "
-                         f"{CROSS_MAX_DK}, head size % 4 == 0; got T={T}, "
-                         f"heads={heads}, dk={dk}, D={D}")
-    _check_cross_batches("cross_i2t_tail", B, keys, kk_tok, vv_tok)
-    if _batch_stride(kk_tok) != _batch_stride(vv_tok):
-        raise ValueError("cross_i2t_tail: kk_tok and vv_tok need one batch "
-                         "stride")
-    if keys.data_ptr() % 16:
-        raise ValueError("cross_i2t_tail: keys must be 16-byte aligned")
-    wq, wout = wq.to(dt).contiguous(), wout.to(dt).contiguous()
-    pe = pe_q.to(dt).reshape(L, D).contiguous()
+    B, dev, dt, wq, pe, kq = _i2t_kernel_operands(
+        "cross_i2t_tail", keys, wq, pe_q, kk_tok, vv_tok, heads)
+    wout = wout.to(dt).contiguous()
     bo, g, bb = (t.float().contiguous() for t in (bout, ln_scale, ln_bias))
-    for t in (wq, wout, pe, bo, g, bb):
+    for t in (wout, bo, g, bb):
         if t.device != dev:
             raise ValueError(f"cross_i2t_tail: weights must be on {dev}")
     out = torch.empty((B, L, dk), dtype=dt, device=dev)
-    # the kernel's scratch: k_tok Wq^T per prompt, formed once per launch
-    kq = torch.empty((B if kk_tok.shape[0] > 1 else 1, heads * T, dk),
-                     dtype=dt, device=dev)
     fn = cuda_build.library("cross_i2t_tail").ovo_cross_i2t_tail
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong,
@@ -595,4 +633,148 @@ def cross_i2t_tail_from_keys(keys: torch.Tensor, wq: torch.Tensor,
                  _DTYPES[dt], stream)
     cuda_build.check(err, "cross_i2t_tail")
     cuda_build.count_launch("cross_i2t_tail")
+    return out
+
+
+def cross_i2t_from_keys(keys: torch.Tensor, wq: torch.Tensor,
+                        pe_q: torch.Tensor, kk_tok: torch.Tensor,
+                        vv_tok: torch.Tensor, heads: int,
+                        t_len: Optional[int] = None) -> torch.Tensor:
+    """Image -> token cross attention reading the raw keys stream (B7):
+    keys (B or 1, L, dk), wq (dk, D), pe_q (1, L, D) = image_pe Wq + bq,
+    kk_tok / vv_tok (B or 1, T, D) projected tokens -> (B, L, D)
+    pre-out-projection, in keys' dtype. Tokens at or past ``t_len``
+    (default T) are masked.
+
+    CPU tensors run :func:`cross_i2t_from_keys_plain`; CUDA tensors launch
+    kernel B7 (``csrc/cross_i2t_proj.cu``) or raise."""
+    T, D, tl = _check_i2t_shapes("cross_i2t_from_keys", keys, wq, pe_q,
+                                 kk_tok, vv_tok, heads, t_len)
+    if keys.device.type == "cpu":
+        return cross_i2t_from_keys_plain(keys, wq, pe_q, kk_tok, vv_tok,
+                                         heads, t_len=t_len)
+    if D > CROSS_MAX_DK:
+        raise ValueError(f"cross_i2t_proj takes D <= {CROSS_MAX_DK}, got {D}")
+    B, dev, dt, wq, pe, kq = _i2t_kernel_operands(
+        "cross_i2t_proj", keys, wq, pe_q, kk_tok, vv_tok, heads)
+    L, dk = keys.shape[1], keys.shape[2]
+    out = torch.empty((B, L, D), dtype=dt, device=dev)
+    fn = cuda_build.library("cross_i2t_proj").ovo_cross_i2t_proj
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(keys.data_ptr(), wq.data_ptr(), pe.data_ptr(),
+                 kk_tok.data_ptr(), vv_tok.data_ptr(), out.data_ptr(),
+                 kq.data_ptr(), B, T, heads, tl, L, dk, D,
+                 float((D // heads) ** -0.5), _batch_stride(keys),
+                 _batch_stride(kk_tok), _DTYPES[dt], stream)
+    cuda_build.check(err, "cross_i2t_proj")
+    cuda_build.count_launch("cross_i2t_proj")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B9a / B9b: the decoder's token <-> image attention on pre-projected
+# operands (the unfused route)
+# ---------------------------------------------------------------------------
+
+SMALL_HEAD_DIM = 16
+SHORT_SIDE = 64          # the token side: at most 64 rows
+
+
+def cross_attention_small_head_plain(qq: torch.Tensor, kk: torch.Tensor,
+                                     vv: torch.Tensor, heads: int,
+                                     t_len: Optional[int] = None
+                                     ) -> torch.Tensor:
+    """Plain PyTorch version of kernels B9a / B9b: the reference's
+    ``_xla_cross`` (split heads, :func:`xla_attention`, merge heads) with
+    batch-1 operands broadcast; keys at or past ``t_len`` at -1e30."""
+    B = max(qq.shape[0], kk.shape[0])
+    D = qq.shape[-1]
+    dh = D // heads
+
+    def heads_of(t):
+        h = t.reshape(t.shape[0], t.shape[1], heads, dh).transpose(1, 2)
+        return h.expand((B,) + h.shape[1:])
+
+    keep = _keys_below(kk.shape[1], t_len, qq.device)
+    o = xla_attention(heads_of(qq), heads_of(kk), heads_of(vv), mask=keep)
+    return o.transpose(1, 2).reshape(B, qq.shape[1], D)
+
+
+def cross_attention_small_head(qq: torch.Tensor, kk: torch.Tensor,
+                               vv: torch.Tensor, heads: int, *,
+                               t_len: Optional[int] = None) -> torch.Tensor:
+    """Multi-head attention on pre-projected (B or 1, Lq, D) x (B or 1, Lk,
+    D) operands with heads of 16 (the SAM decoder's cross attention), one
+    side at most 64 rows: token -> image (t2i, Lq <= 64 < Lk) or image ->
+    token (i2t, Lk <= 64 < Lq; tokens at or past ``t_len`` masked). Output
+    (B, Lq, D) in qq's dtype; batch-1 operands are shared, never broadcast
+    in memory.
+
+    CPU tensors run :func:`cross_attention_small_head_plain`; CUDA tensors
+    launch kernel B9a or B9b (``csrc/cross_small_head.cu``) or raise."""
+    if qq.dim() != 3 or kk.dim() != 3 or kk.shape != vv.shape \
+            or qq.shape[2] != kk.shape[2]:
+        raise ValueError(f"cross_attention_small_head: (B, L, D) operands "
+                         f"with kk.shape == vv.shape expected, got "
+                         f"{tuple(qq.shape)}, {tuple(kk.shape)}, "
+                         f"{tuple(vv.shape)}")
+    Lq, Lk, D = qq.shape[1], kk.shape[1], qq.shape[2]
+    t2i = Lq <= SHORT_SIDE < Lk
+    i2t = Lk <= SHORT_SIDE < Lq
+    if not (t2i or i2t):
+        raise ValueError(f"cross_attention_small_head: one side must have at "
+                         f"most {SHORT_SIDE} rows and the other more; got "
+                         f"Lq={Lq}, Lk={Lk}")
+    tl = Lk if t_len is None else int(t_len)
+    if t_len is not None and (t2i or not 1 <= tl <= Lk):
+        raise ValueError(f"cross_attention_small_head: t_len {t_len} masks "
+                         f"tokens of i2t only, 1 <= t_len <= {Lk}")
+    if qq.device.type == "cpu":
+        return cross_attention_small_head_plain(qq, kk, vv, heads,
+                                                t_len=t_len)
+    name = "cross_small_head_t2i" if t2i else "cross_small_head_i2t"
+    dev, dt = _check_device_tensors(name, (qq, kk, vv))
+    if D % heads or D // heads != SMALL_HEAD_DIM or D > CROSS_MAX_DK:
+        raise ValueError(f"{name} takes heads of {SMALL_HEAD_DIM}, D <= "
+                         f"{CROSS_MAX_DK}; got D={D}, heads={heads}")
+    B = max(qq.shape[0], kk.shape[0])
+    _check_cross_batches(name, B, qq, kk, vv)
+    if i2t and _batch_stride(kk) != _batch_stride(vv):
+        raise ValueError(f"{name}: kk and vv need one batch stride")
+    for t in (qq, kk, vv):
+        if t.data_ptr() % 16 or _batch_stride(t) % 4:
+            raise ValueError(f"{name}: operands must be 16-byte aligned with "
+                             f"batch strides a multiple of 4")
+    out = torch.empty((B, Lq, D), dtype=dt, device=dev)
+    lib = cuda_build.library("cross_small_head")
+    scale = float(SMALL_HEAD_DIM ** -0.5)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if t2i:
+            fn = lib.ovo_cross_small_head_t2i
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+                ctypes.c_float] + [ctypes.c_longlong] * 3 + [
+                ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = fn(qq.data_ptr(), kk.data_ptr(), vv.data_ptr(),
+                     out.data_ptr(), B, Lq, heads, Lk, D, scale,
+                     _batch_stride(qq), _batch_stride(kk), _batch_stride(vv),
+                     _DTYPES[dt], stream)
+        else:
+            fn = lib.ovo_cross_small_head_i2t
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+                ctypes.c_float] + [ctypes.c_longlong] * 2 + [
+                ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = fn(qq.data_ptr(), kk.data_ptr(), vv.data_ptr(),
+                     out.data_ptr(), B, Lk, tl, heads, Lq, D, scale,
+                     _batch_stride(qq), _batch_stride(kk), _DTYPES[dt],
+                     stream)
+    cuda_build.check(err, name)
+    cuda_build.count_launch(name)
     return out

@@ -27,13 +27,19 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ovo_tpu_torch"
 KERNELS = ("rope_packed_attention", "masked_pool", "flash_attention",
            "windowed_attention", "cross_t2i", "cross_i2t_tail",
-           "fused_attention", "fused_attn_block", "fused_mlp_block")
+           "fused_attention", "fused_attn_block", "fused_mlp_block",
+           "cross_small_head", "cross_i2t_proj", "residual_layer_norm")
+# launches are counted per kernel: one per library, but for the two
+# directions of cross_small_head (B9a, B9b)
+LAUNCH_NAMES = tuple(n for k in KERNELS for n in (
+    ("cross_small_head_t2i", "cross_small_head_i2t")
+    if k == "cross_small_head" else (k,)))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-_launches: Dict[str, int] = {name: 0 for name in KERNELS}
+_launches: Dict[str, int] = {name: 0 for name in LAUNCH_NAMES}
 
 
 def count_launch(name: str) -> None:

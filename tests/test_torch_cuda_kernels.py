@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels B5 (rope_packed_attention), B6
 (masked_pool), B1-B4 (flash, windowed and the two decoder cross
-attentions), B10 (fused_attention) and B12a / B12b (fused_attn_block,
-fused_mlp_block; limits beside their tests below) against their plain PyTorch
-versions, on a CUDA card. These tests skip without one (the kernels have no
+attentions), B10 (fused_attention), B12a / B12b (fused_attn_block,
+fused_mlp_block) and the decoder's other routes' B7 (cross_i2t_proj), B8
+(residual_layer_norm) and B9a / B9b (cross_small_head; limits beside their
+tests below) against their plain PyTorch versions, on a CUDA card. These tests skip without one (the kernels have no
 CPU mode). The file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
 
@@ -297,3 +298,86 @@ def test_fused_block_wrappers_raise_on_what_the_kernels_do_not_take(
     with pytest.raises(ValueError, match="f32"):
         FB.fused_mlp_block(x[:, :8], p["fc"], p["fcb"].half(), p["pw"],
                            p["pb"], p["ls"], p["lb"], chunk=256)
+
+
+# ---------------------------------------------------------------------------
+# B9a / B9b (cross_small_head), B7 (cross_i2t_proj), B8 (residual_layer_norm):
+# the decoder's unfused and proj routes. Limits: 1e-4 abs in f32 (sums in
+# another order). bf16: B9a / B9b and B7 round the normalized weights on both
+# sides, as the reference does, so a weight on a rounding edge can move an
+# output a step; the outputs are softmax means of N(0,1) values, below 1
+# for B9a (over hundreds of image rows), where one bf16 step is at most
+# 2^-8: 1e-2; below 4 for B9b / B7 (over a few tokens), where it is 2^-6:
+# 3e-2. B8's output is a LayerNorm of order-1 values times a scale up to
+# 1.5 plus an N(0,1) bias, below 8, where one step is 2^-5; both sides
+# round one f32 value, so they differ by at most a step: 6e-2 (as B4). The
+# limits are those of chip_smoke.py.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_cross_small_head_t2i_kernel_matches_plain(cuda_device, dtype, tol):
+    rng = np.random.default_rng(28)
+    # (prompts, image batch, tokens, image rows, heads): shared and
+    # per-prompt image sides, 11 tokens (88 rows: two row blocks), 4 heads
+    for B, Bk, T, L, heads in ((5, 1, 8, 300, 8), (5, 5, 8, 257, 8),
+                               (3, 3, 11, 200, 8), (2, 1, 7, 130, 4)):
+        D = 16 * heads
+        q = _dev(rng.standard_normal((B, T, D)), cuda_device, dtype)
+        k, v = (_dev(rng.standard_normal((Bk, L, D)), cuda_device, dtype)
+                for _ in range(2))
+        got = A.cross_attention_small_head(q, k, v, heads)
+        ref = A.cross_attention_small_head_plain(q, k, v, heads)
+        assert _err(got, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_cross_small_head_i2t_kernel_matches_plain(cuda_device, dtype, tol):
+    rng = np.random.default_rng(29)
+    # (prompts, image batch, tokens, t_len, image rows): a shared image side
+    # with per-prompt tokens (the first layer), per-prompt both, masked
+    # tokens, shared tokens
+    for Bt, Bq, T, t_len, L in ((4, 1, 8, None, 300), (4, 4, 8, 6, 129),
+                                (1, 3, 11, None, 200)):
+        q = _dev(rng.standard_normal((Bq, L, 128)), cuda_device, dtype)
+        k, v = (_dev(rng.standard_normal((Bt, T, 128)), cuda_device, dtype)
+                for _ in range(2))
+        got = A.cross_attention_small_head(q, k, v, 8, t_len=t_len)
+        ref = A.cross_attention_small_head_plain(q, k, v, 8, t_len=t_len)
+        assert _err(got, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_cross_i2t_proj_kernel_matches_plain(cuda_device, dtype, tol):
+    rng = np.random.default_rng(30)
+    for Bt, Bk, T, t_len, L in ((3, 1, 8, None, 100), (3, 3, 8, 6, 300),
+                                (1, 3, 5, 4, 130)):
+        x = _cross_args(rng, cuda_device, dtype, Bt, Bk, T, L)
+        vv = x["q"].flip(1).contiguous()
+        args = (x["keys"], x["wk"], x["pe"], x["q"], vv, 8)
+        got = A.cross_i2t_from_keys(*args, t_len=t_len)
+        ref = A.cross_i2t_from_keys_plain(*args, t_len=t_len)
+        assert _err(got, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 6e-2)])
+def test_residual_layer_norm_kernel_matches_plain(cuda_device, dtype, tol):
+    from ovo_tpu_torch.ops.layer_norm import (residual_layer_norm,
+                                              residual_layer_norm_plain)
+
+    rng = np.random.default_rng(31)
+    for B, Br, L, C in ((4, 1, 300, 256), (3, 3, 129, 256), (2, 1, 7, 1024),
+                        (2, 2, 33, 68)):
+        x, r = (_dev(rng.standard_normal((b, L, C)), cuda_device, dtype)
+                for b in (B, Br))
+        g = _dev(rng.random(C) + 0.5, cuda_device, torch.float32)
+        b = _dev(rng.standard_normal(C), cuda_device, torch.float32)
+        assert _err(residual_layer_norm(x, r, g, b),
+                    residual_layer_norm_plain(x, r, g, b)) <= tol
