@@ -1,25 +1,33 @@
-// Residual add + LayerNorm in one pass: the SAM decoder's image-side norm4
-// on its unfused and proj routes.
+// Row LayerNorm, with or without a residual added first, in one pass.
 //
-// Replaces: ovo_tpu/ops/layer_norm.py residual_layer_norm -> _res_ln_call /
-// _res_ln_kernel (a Pallas TPU kernel).
+// Two entry points:
+//   ovo_residual_layer_norm -- replaces ovo_tpu/ops/layer_norm.py
+//     residual_layer_norm -> _res_ln_call / _res_ln_kernel (kernel B8): the
+//     SAM decoder's image-side norm4 on its unfused and proj routes;
+//   ovo_layer_norm_rows -- replaces ovo_tpu/ops/layer_norm.py
+//     layer_norm_rows -> _ln_call / _ln_kernel (kernel B14): B8 without the
+//     residual, over the last axis of any leading shape.
 //
-// What it computes, for each row (b, l) of x (B, L, C) and res (B or 1, L,
-// C): v = x + res in f32; mean = sum(v) / C; cen = v - mean; var =
+// What it computes, for each row of x (rows, C) (and of res (B or 1, L, C)
+// for B8): v = x (+ res) in f32; mean = sum(v) / C; cen = v - mean; var =
 // sum(cen^2) / C (two passes over registers, not E[v^2] - mean^2); out =
 // cen * rsqrt(var + eps) * scale + bias in f32, rounded once to the dtype.
 //
 // What bounds it on an H100: bytes. At the 1280^2 AMG shape (256 prompts,
-// L = 6400, C = 256, bf16) a launch reads x and a per-prompt res (839 MB
+// L = 6400, C = 256, bf16) a B8 launch reads x and a per-prompt res (839 MB
 // each) and writes 839 MB: 2.5 GB, 0.75 ms at 3.35 TB/s (0.50 ms with a
-// batch-1 res, read once: 3.3 MB). It does ~10 operations per element.
+// batch-1 res, read once: 3.3 MB). B14 at PE-Core-L14-336's LayerNorm (7
+// views x 584 rows, C 1024, bf16) moves 16.7 MB: 0.005 ms, far below the
+// host-side cost of a launch. Both do ~10 operations per element.
 //
 // Design: one warp per row, eight rows per 256-thread block. Each lane
 // loads four consecutive elements at a time (8 bytes in bf16, 16 in f32),
-// lanes on consecutive addresses, and keeps its up to 8 x 4 values in
-// registers, so x and res are read once and out written once. The two
-// sums are warp shuffles. A batch-1 res is read through a batch stride of
-// 0: the (B, L, C) broadcast is never formed.
+// lanes on consecutive addresses, and keeps its up to GROUPS x 4 values in
+// registers, so x and res are read once and out written once: GROUPS = 8
+// holds C <= 1024, GROUPS = 16 the wider rows B14 takes (Hiera-L's 1152,
+// ViT-H-14's 1280; up to 2048). The two sums are warp shuffles. A batch-1
+// res is read through a batch stride of 0: the (B, L, C) broadcast is never
+// formed.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -29,7 +37,9 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int GROUPS = 8;  // four-element groups per lane: C <= 1024
+// four-element groups per lane: C <= 4 * 32 * GROUPS
+constexpr int NARROW = 8;   // C <= 1024
+constexpr int WIDE = 16;    // C <= 2048
 
 template <typename T>
 __device__ __forceinline__ float4 load4(const T* p);
@@ -71,19 +81,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+// RES: add res (B8); without it (B14) res, L and r_sb are unused
+template <typename T, bool RES, int GROUPS>
 __global__ void __launch_bounds__(THREADS)
-res_ln_kernel(const T* __restrict__ x, const T* __restrict__ res,
-              const float* __restrict__ scale, const float* __restrict__ bias,
-              T* __restrict__ out, long long rows, int L, int C,
-              long long r_sb, float eps) {
+ln_kernel(const T* __restrict__ x, const T* __restrict__ res,
+          const float* __restrict__ scale, const float* __restrict__ bias,
+          T* __restrict__ out, long long rows, int L, int C, long long r_sb,
+          float eps) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= rows) return;
   const long long b = row / L;
   const long long l = row - b * L;
   const T* xr = x + row * C;
-  const T* rr = res + b * r_sb + l * C;
+  const T* rr = RES ? res + b * r_sb + l * C : xr;
   T* orow = out + row * C;
   const int C4 = C / 4;
 
@@ -94,8 +105,13 @@ res_ln_kernel(const T* __restrict__ x, const T* __restrict__ res,
     const int g = lane + 32 * i;
     v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (g < C4) {
-      const float4 a = load4<T>(xr + 4 * g), r = load4<T>(rr + 4 * g);
-      v[i] = make_float4(a.x + r.x, a.y + r.y, a.z + r.z, a.w + r.w);
+      const float4 a = load4<T>(xr + 4 * g);
+      if (RES) {
+        const float4 r = load4<T>(rr + 4 * g);
+        v[i] = make_float4(a.x + r.x, a.y + r.y, a.z + r.z, a.w + r.w);
+      } else {
+        v[i] = a;
+      }
       s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
     }
   }
@@ -128,16 +144,21 @@ res_ln_kernel(const T* __restrict__ x, const T* __restrict__ res,
   }
 }
 
-template <typename T>
+template <typename T, bool RES>
 cudaError_t launch(const void* x, const void* res, const float* scale,
-                   const float* bias, void* out, int B, int L, int C,
+                   const float* bias, void* out, long long rows, int L, int C,
                    long long r_sb, float eps, cudaStream_t stream) {
-  const long long rows = (long long)B * L;
   const long long blocks = (rows + WARPS - 1) / WARPS;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  res_ln_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res), scale, bias,
-      static_cast<T*>(out), rows, L, C, r_sb, eps);
+  const T* xt = static_cast<const T*>(x);
+  const T* rt = static_cast<const T*>(res);
+  T* ot = static_cast<T*>(out);
+  if (C <= 4 * 32 * NARROW)
+    ln_kernel<T, RES, NARROW><<<(unsigned)blocks, THREADS, 0, stream>>>(
+        xt, rt, scale, bias, ot, rows, L, C, r_sb, eps);
+  else
+    ln_kernel<T, RES, WIDE><<<(unsigned)blocks, THREADS, 0, stream>>>(
+        xt, rt, scale, bias, ot, rows, L, C, r_sb, eps);
   return cudaGetLastError();
 }
 
@@ -152,15 +173,38 @@ extern "C" int ovo_residual_layer_norm(const void* x, const void* res,
                                        void* out, int B, int L, int C,
                                        long long r_sb, float eps, int dtype,
                                        void* stream) {
-  if (B < 1 || L < 1 || C < 4 || C % 4 || C > 4 * 32 * GROUPS)
+  if (B < 1 || L < 1 || C < 4 || C % 4 || C > 4 * 32 * NARROW)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(scale);
+  const float* b = static_cast<const float*>(bias);
+  const long long rows = (long long)B * L;
+  if (dtype == 0)
+    return (int)launch<float, true>(x, res, g, b, out, rows, L, C, r_sb, eps,
+                                    s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, true>(x, res, g, b, out, rows, L, C,
+                                            r_sb, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x (rows, C); scale, bias (C,) f32; out (rows, C). Needs C % 4 == 0, C <=
+// 2048 and 16-byte aligned pointers. dtype: 0 = float32, 1 = bfloat16.
+// Returns the cudaError_t of the launch.
+extern "C" int ovo_layer_norm_rows(const void* x, const void* scale,
+                                   const void* bias, void* out,
+                                   long long rows, int C, float eps,
+                                   int dtype, void* stream) {
+  if (rows < 1 || C < 4 || C % 4 || C > 4 * 32 * WIDE)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   if (dtype == 0)
-    return (int)launch<float>(x, res, g, b, out, B, L, C, r_sb, eps, s);
+    return (int)launch<float, false>(x, nullptr, g, b, out, rows, 1, C, 0,
+                                     eps, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, res, g, b, out, B, L, C, r_sb, eps,
-                                      s);
+    return (int)launch<__nv_bfloat16, false>(x, nullptr, g, b, out, rows, 1,
+                                             C, 0, eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -91,6 +91,25 @@ class CallableMaskSource:
         return _upload(*pad_masks(np.asarray(seg_map), np.asarray(binary),
                                   self.max_masks), self.device)
 
+    def get_masks_batch(self, images, frame_ids):
+        """The reference's loop fallback: each image through ``get_masks``
+        (an empty frame as an all-invalid slot set), stacked, so the
+        pipeline's ``sam.batch`` path runs with recorded or synthetic
+        masks."""
+        h, w = np.asarray(images[0]).shape[:2]
+        segs, bs, vs = [], [], []
+        for img, fid in zip(images, frame_ids):
+            seg, b, valid = self.get_masks(img, fid)
+            if seg is None:
+                seg, b, valid = _upload(
+                    np.full((h, w), -1, np.int32),
+                    np.zeros((self.max_masks, h, w), bool),
+                    np.zeros((self.max_masks,), bool), self.device)
+            segs.append(seg)
+            bs.append(b)
+            vs.append(valid)
+        return torch.stack(segs), torch.stack(bs), torch.stack(vs)
+
 
 class RecordedEmbedder:
     """Embedder backed by a lookup: label -> unit vector (tests and

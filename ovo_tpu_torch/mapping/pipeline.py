@@ -10,8 +10,17 @@ The dataset is built from the config (``data/datasets.get_dataset`` of
 ``dataset_name`` over the ``data`` and ``cam`` sections) unless the caller
 passes one (duck-typed: ``__getitem__`` -> (id, image u8 (H, W, 3), depth
 f32 (H, W), c2w (4, 4)), ``__len__``, ``intrinsics``, ``height``,
-``width``). The viewer stream, the profiler hook, map restore and backbones
-other than ``vanilla`` come with later slices and raise here.
+``width``).
+
+``restore_map`` resumes a run from its checkpoint (vanilla backbone only):
+the semantic state, the map and the poses are restored and the run starts
+after the last restored pose. ``profile_trace`` (a directory) traces the
+reference's step window -- from the first segment step, for
+``profile_trace_steps`` (default 3) more steps, or to the end of the run --
+with ``torch.profiler`` (CUDA activity on the card, CPU activity on the
+CPU) and writes a Chrome trace there: PyTorch's format, where the JAX
+package writes ``jax.profiler``'s. The viewer stream and backbones other
+than ``vanilla`` come with later slices and raise here.
 """
 from __future__ import annotations
 
@@ -43,10 +52,6 @@ class OVOSemMap:
             torch.backends.cudnn.allow_tf32 = False
         if (config.get("vis") or {}).get("stream", False):
             raise NotImplementedError("the viewer stream is not ported yet")
-        if config.get("profile_trace"):
-            raise NotImplementedError("the profiler hook is not ported yet")
-        if config.get("restore_map", False):
-            raise NotImplementedError("map restore is not ported yet")
         self.output_path = Path(output_path)
         self.output_path.mkdir(exist_ok=True, parents=True)
         io_utils.save_dict_to_yaml(config, "config.yaml",
@@ -89,7 +94,17 @@ class OVOSemMap:
                                   embedder=embedder, device=self.device)
         self.slam_backbone = get_slam_backbone(config, self.dataset,
                                                cam_intrinsics, self.device)
+        self.profile_trace = config.get("profile_trace")
+        self.profile_trace_steps = int(config.get("profile_trace_steps", 3))
+        self._trace_state = 0  # 0 idle, > 0 steps traced, -1 done
+        self._profiler = None
         self.first_frame = 0
+        if config.get("restore_map", False):
+            if config["slam"].get("slam_module", "vanilla") != "vanilla":
+                raise ValueError("restoring a representation is implemented "
+                                 "for the 'vanilla' backbone only")
+            self.restore_representation()
+            self.first_frame = max(self.slam_backbone.estimated_c2ws) + 1
 
     # ------------------------------------------------------------------
     def _precompute_masks(self, mask_source, sam_cfg):
@@ -131,6 +146,43 @@ class OVOSemMap:
         if self.config["slam"].get("save_estimated_cam", False):
             np.save(self.output_path / "estimated_c2w.npy",
                     self.slam_backbone.get_cam_dict(), allow_pickle=True)
+
+    def restore_representation(self) -> None:
+        """The checkpoint of a previous run in ``output_path``: semantic
+        state (with its debug records when ``debug`` is set), map and, when
+        saved, the camera poses."""
+        ckpt_path = self.output_path / "ovo_map.ckpt"
+        if not ckpt_path.exists():
+            raise FileNotFoundError(f"Missing checkpoint: {ckpt_path}")
+        ckpt = io_utils.load_ckpt(ckpt_path)
+        self.ovo.restore_dict(ckpt["ovo_map_params"],
+                              debug_info=self.config.get("debug", False))
+        self.slam_backbone.set_map_dict(ckpt["map_params"])
+        c2w_path = self.output_path / "estimated_c2w.npy"
+        if c2w_path.exists():
+            self.slam_backbone.set_cam_dict(
+                np.load(c2w_path, allow_pickle=True).item())
+        else:
+            print(f"Missing cameras positions to restore: {c2w_path}")
+            print("Restoring without camera positions!")
+
+    # ------------------------------------------------------------------
+    def _start_trace(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activity = (ProfilerActivity.CUDA if self.device.type == "cuda"
+                    else ProfilerActivity.CPU)
+        self._profiler = profile(activities=[activity])
+        self._profiler.start()
+
+    def _stop_trace(self) -> None:
+        self._profiler.stop()
+        out = Path(self.profile_trace)
+        out.mkdir(parents=True, exist_ok=True)
+        self._profiler.export_chrome_trace(str(
+            out / f"{time.strftime('%Y_%m_%d_%H_%M_%S')}.pt.trace.json"))
+        self._profiler = None
+        self._trace_state = -1
 
     # ------------------------------------------------------------------
     def _frame_schedule(self):
@@ -177,6 +229,14 @@ class OVOSemMap:
                 except queue.Empty:
                     pass
 
+        if self._trace_state > 0:
+            self._stop_trace()
+        if self.ovo._pending:
+            # sam.batch > 1: segment and associate the buffered keyframes
+            new_state = self.ovo.flush_segmentation(
+                self.slam_backbone.get_map())
+            if new_state is not None:
+                self.slam_backbone.update_pcd_obj_ids(new_state)
         self.ovo.complete_semantic_info()
         t_end = time.time()
         fps = len(self.dataset) / self.segment_every / (t_end - t_start)
@@ -204,11 +264,14 @@ class OVOSemMap:
         # mapping on the segment cadence fuses the vanilla insert into the
         # association (one pass, shared projection and gathers)
         fuse_this = (do_map and do_seg
-                     and self.slam_backbone.supports_fused_insert)
+                     and self.slam_backbone.supports_fused_insert
+                     and self.ovo.sam_batch == 1)
         if do_map and not fuse_this:
             self.slam_backbone.map(frame_data, c2w)
         if not do_seg:
             return 0.0
+        if self.profile_trace and self._trace_state == 0:
+            self._start_trace()
         t0 = time.time()
         image = frame_data[4] if len(frame_data) == 5 else frame_data[1]
         if (self.dataset.height != image.shape[0]
@@ -237,4 +300,9 @@ class OVOSemMap:
                 self.slam_backbone.update_pcd_obj_ids(new_state)
         self.ovo.compute_semantic_info()
         self.logger.log_memory_usage(frame_id)
-        return time.time() - t0
+        t_sem = time.time() - t0
+        if self.profile_trace and self._trace_state >= 0:
+            self._trace_state += 1
+            if self._trace_state > self.profile_trace_steps:
+                self._stop_trace()
+        return t_sem

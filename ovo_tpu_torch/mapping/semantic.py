@@ -10,11 +10,20 @@ one keyframe later (``utils/async_scalar.py``); growth checks and the
 
 Text queries and classification (``query``, ``classify_instances``) run
 after mapping, or on a mapper restored from a checkpoint (``eval=True``,
-``restore_dict``). ``debug_info`` keeps the per-keyframe association
-records and instance maps for the checkpoint's debug layout (a host read
-per keyframe, as in the JAX package). Loop closure (``update_map``), point
-sharding, the sharded query, ``sam.batch > 1`` and restoring a debug
-checkpoint come with later slices and raise ``NotImplementedError`` here.
+``restore_dict``; ``debug_info=True`` restores the debug records as well).
+``debug_info`` keeps the per-keyframe association records and instance maps
+for the checkpoint's debug layout (a host read per keyframe, as in the JAX
+package).
+
+SAM micro-batching (``sam.batch`` B > 1, the reference's perf knob): B
+segment keyframes are buffered, segmented in one batched mask-source call
+(``get_masks_batch``) and then associated strictly in order; the deferred
+descriptors are popped B at a time through the embedder's
+``embed_masks_batch``. A flush reads each keyframe's mask validity on the
+host (the reference's skip-on-empty); it is the only host read of that
+path's frame loop. Loop closure (``update_map``), point sharding, the
+sharded query and the data-parallel embedder come with later slices and
+raise ``NotImplementedError`` here.
 
 Pluggable backends (duck-typed):
   mask_source.get_masks(image (H, W, 3) u8 numpy, frame_id) ->
@@ -55,6 +64,13 @@ def instance_pixel_map(fused_maps: torch.Tensor, ins_ids: torch.Tensor,
     last = (M - 1) - torch.argmax(cover.flip(0).to(torch.uint8), dim=0)
     return torch.where(cover.any(dim=0), ids[last],
                        torch.full_like(last, -1)).to(torch.int32)
+
+
+def keyframe_has_mask(valid: torch.Tensor) -> bool:
+    """Whether a buffered keyframe has a valid mask: the micro-batch
+    flush's skip-on-empty, a host read per keyframe (the only one its frame
+    loop makes)."""
+    return bool(valid.any())
 
 
 class SemanticMapper:
@@ -123,8 +139,10 @@ class SemanticMapper:
         self.debug_info = bool(config.get("debug_info", False))
         self.kf_records: Dict[int, tuple] = {}   # kf -> (ins_ids, areas)
         self.kf_ins_maps: Dict[int, np.ndarray] = {}
-        if int(config.get("sam", {}).get("batch", 1)) > 1:
-            raise NotImplementedError("sam.batch > 1 is not ported yet")
+        # SAM micro-batching: (frame_id, image, depth, ratio, c2w) buffered
+        # until sam_batch keyframes can be segmented together
+        self.sam_batch = int(config.get("sam", {}).get("batch", 1))
+        self._pending: List[tuple] = []
         par_cfg = config.get("parallel", {}) or {}
         if any(par_cfg.get(k, False)
                for k in ("point_shard", "shard_query", "dp_embed")):
@@ -142,6 +160,15 @@ class SemanticMapper:
         map insert fuses into the association (keys: colors,
         insert_match_th, k_pooling, downscale, active_rows)."""
         frame_id, image, depth, rgb_depth_ratio = frame_data
+        if self.sam_batch > 1 and hasattr(self.mask_source,
+                                          "get_masks_batch"):
+            if insert is not None:
+                raise ValueError("the fused map insert needs sam.batch == 1")
+            self._pending.append((frame_id, image, depth, rgb_depth_ratio,
+                                  np.asarray(c2w)))
+            if len(self._pending) < self.sam_batch:
+                return None
+            return self.flush_segmentation(map_state)
         t0 = time.time()
         seg_map, binary_maps, mask_valid = self.mask_source.get_masks(
             image, frame_id)
@@ -181,6 +208,33 @@ class SemanticMapper:
             if not req.get():
                 print(f"No mask segmented in {frame_id}!")
         self._valid_req = []
+
+    def flush_segmentation(self, map_state: MapState) -> Optional[MapState]:
+        """Segment every buffered keyframe in one batched mask-source call,
+        then associate each in order against the evolving map. Returns the
+        last new map state (None if nothing was associated)."""
+        if not self._pending:
+            return None
+        pending, self._pending = self._pending, []
+        t0 = time.time()
+        images = np.stack([p[1] for p in pending])
+        seg_b, bmaps_b, valid_b = self.mask_source.get_masks_batch(
+            images, [p[0] for p in pending])
+        # one upload of the frames: the deferred embedder reads them
+        images_dev = to_device(images, self.device)
+        t_sam = time.time() - t0
+        out = None
+        for j, (frame_id, _, depth, ratio, c2w) in enumerate(pending):
+            if not keyframe_has_mask(valid_b[j]):
+                print(f"No mask segmented in {frame_id}!")
+                continue
+            new_state = self._associate(
+                frame_id, images_dev[j], depth, ratio, c2w, seg_b[j],
+                bmaps_b[j], valid_b[j], map_state if out is None else out,
+                t_sam / len(pending))
+            if new_state is not None:
+                out = new_state
+        return out
 
     def _associate(self, frame_id, image, depth, rgb_depth_ratio, c2w,
                    seg_map, binary_maps, mask_valid, map_state, t_sam,
@@ -272,44 +326,71 @@ class SemanticMapper:
     # ------------------------------------------------------------------
 
     def compute_semantic_info(self) -> None:
-        """Pop one keyframe per segment step once the queue is deeper than
-        ``kf_queue_delay``."""
-        if len(self.keyframes_queue) > self.kf_queue_delay:
-            self._compute_semantic_info()
+        """Pop keyframes once the queue is deeper than ``kf_queue_delay``:
+        one per segment step, or, micro-batched, up to ``sam.batch`` at a
+        time through the batched embedder."""
+        step = max(self.sam_batch, 1)
+        n = 0
+        while len(self.keyframes_queue) > self.kf_queue_delay and n < step:
+            take = min(step, len(self.keyframes_queue) - self.kf_queue_delay)
+            self._compute_semantic_info(take)
+            n += take
 
     def complete_semantic_info(self) -> None:
         while self.keyframes_queue:
-            self._compute_semantic_info()
+            self._compute_semantic_info(
+                min(max(self.sam_batch, 1), len(self.keyframes_queue)))
 
-    def _compute_semantic_info(self) -> None:
-        kf = self.keyframes_queue.popleft()
-        keep = kf["keep"]
-        kf_t = torch.full((), kf["kf_id"], dtype=torch.int32,
-                          device=self.device)
-        if not self.unbounded_top_k:
-            # the kf may have left an instance's top-k during the delay
-            keep = keep & inst.is_top_kf(self.store, kf["ins_ids"], kf_t)
-        if (self.debug_info or self.log or not self.unbounded_top_k) \
-                and not bool(keep.any()):
+    def _compute_semantic_info(self, take: int = 1) -> None:
+        kfs = [self.keyframes_queue.popleft() for _ in range(take)]
+        kf_ts = [torch.full((), kf["kf_id"], dtype=torch.int32,
+                            device=self.device) for kf in kfs]
+        keeps = []
+        for kf, kf_t in zip(kfs, kf_ts):
+            keep = kf["keep"]
+            if not self.unbounded_top_k:
+                # the kf may have left an instance's top-k during the delay
+                keep = keep & inst.is_top_kf(self.store, kf["ins_ids"], kf_t)
+            keeps.append(keep)
+        if self.debug_info or self.log or not self.unbounded_top_k:
             # debug and log runs and top-k gating keep the exact
             # skip-on-empty check
-            return
-        # hot path: embed optimistically -- keep=False rows are dropped by
-        # update_descriptors, so an all-empty keyframe wastes one embed
+            any_keep = [bool(k.any()) for k in keeps]
+            if not any(any_keep):
+                return
+        else:
+            # hot path: embed optimistically -- keep=False rows are dropped
+            # by update_descriptors, so an all-empty keyframe wastes one
+            # embed
+            any_keep = [True] * len(keeps)
         t0 = time.time()
-        descs = self.embedder.embed_masks(kf["image"], kf["fused_maps"], keep)
+        if (len(kfs) > 1 and all(any_keep)
+                and hasattr(self.embedder, "embed_masks_batch")):
+            descs_list = self.embedder.embed_masks_batch(
+                torch.stack([kf["image"] for kf in kfs]),
+                torch.stack([kf["fused_maps"] for kf in kfs]),
+                torch.stack(keeps))
+        else:
+            descs_list = [
+                self.embedder.embed_masks(kf["image"], kf["fused_maps"], k)
+                if ok else None
+                for kf, k, ok in zip(kfs, keeps, any_keep)]
         t_clip = time.time() - t0
         t0 = time.time()
-        descs32 = descs.float()
-        self.store = inst.update_descriptors(
-            self.store, kf["ins_ids"], descs32, kf_t, keep,
-            fusion=self.fusion)
-        self.kf_descriptors[kf["kf_id"]] = (kf["ins_ids"], descs32, keep)
+        for kf, kf_t, keep, ok, descs in zip(kfs, kf_ts, keeps, any_keep,
+                                             descs_list):
+            if not ok:
+                continue
+            descs32 = descs.float()
+            self.store = inst.update_descriptors(
+                self.store, kf["ins_ids"], descs32, kf_t, keep,
+                fusion=self.fusion)
+            self.kf_descriptors[kf["kf_id"]] = (kf["ins_ids"], descs32, keep)
         if self.log and self.logger is not None:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.logger.log_ovo_stats({
-                "frame_id": self.frame_ids[kf["kf_id"]],
+                "frame_id": self.frame_ids[kfs[-1]["kf_id"]],
                 "t_clip": round(t_clip, 2),
                 "t_up": round(time.time() - t0, 3),
             }, print_output=True)
@@ -326,10 +407,10 @@ class SemanticMapper:
         """Consume a reference-layout checkpoint dict (numpy leaves): the
         active ids and fused descriptors, legacy ``default_<id>_*`` keys
         included; the store grows past ``n_instances`` to the largest id.
-        Restoring the debug records (``debug_info=True``) is not ported."""
-        if debug_info:
-            raise NotImplementedError("restoring debug_info records is not "
-                                      "ported yet")
+        ``debug_info`` also restores the debug records: ``frame_ids`` and
+        ``kf_id``, the per-keyframe instance maps and association records,
+        point counts, the bounded top-k heaps, and the per-(kf, instance)
+        descriptors with the (sum, count) fusion state they imply."""
         ids = np.asarray(scene_dict["ins_3d_ids"]).astype(np.int64)
         if len(ids) and ids.max() >= self.n_instances:
             self.store = init_instance_store(
@@ -337,29 +418,115 @@ class SemanticMapper:
                 n_slots=self.store.n_slots,
                 store_slot_descs=self.fusion in _MEDOID_FUSIONS,
                 device=self.device)
+
+        def get(i, field):
+            v = scene_dict.get(f"ins3d_{i}_{field}")
+            if v is None:
+                v = scene_dict.get(f"default_{i}_{field}")
+            return v
+
         K = self.store.capacity
         active = np.zeros(K, bool)
         feats = np.zeros((K, self.clip_dim), np.float32)
         has = np.zeros(K, bool)
+        n_points = np.zeros(K, np.int32)
         for i in ids:
             active[i] = True
-            f = scene_dict.get(f"ins3d_{i}_clip_feature")
-            if f is None:
-                f = scene_dict.get(f"default_{i}_clip_feature")
+            f = get(i, "clip_feature")
             if f is not None:
                 feats[i] = np.asarray(f, np.float32).reshape(-1)[
                     :self.clip_dim]
                 has[i] = True
+        desc_sum = feats.copy()
+        desc_cnt = has.astype(np.int32)
         dev = self.device
+        tops = {}
+        if debug_info:
+            desc_sum[:], desc_cnt[:] = 0.0, 0
+            self._restore_debug(scene_dict, ids, get, n_points, desc_sum,
+                                desc_cnt, tops)
+            # an instance with a fused feature but no per-kf clips counts
+            # its feature as one view, so later keyframe drops stay defined
+            orphan = (desc_cnt == 0) & has
+            desc_sum[orphan] = feats[orphan]
+            desc_cnt[orphan] = 1
+        next_id = int(ids.max()) + 1 if len(ids) else 0
+        repl = {}
+        if tops:
+            ta = self.store.top_area.cpu().numpy()
+            tk = self.store.top_kf.cpu().numpy()
+            for i, pairs in tops.items():
+                ta[i, :len(pairs)] = pairs[:, 0]
+                tk[i, :len(pairs)] = pairs[:, 1]
+            repl = dict(top_area=torch.from_numpy(ta).to(dev),
+                        top_kf=torch.from_numpy(tk).to(dev))
         self.store = self.store._replace(
             active=torch.from_numpy(active).to(dev),
             clip_feature=torch.from_numpy(feats).to(dev),
             has_clip=torch.from_numpy(has).to(dev),
-            desc_sum=torch.from_numpy(feats.copy()).to(dev),
-            desc_cnt=torch.from_numpy(has.astype(np.int32)).to(dev),
-            n_points=torch.zeros(K, dtype=torch.int32, device=dev),
-            next_id=torch.full((), int(ids.max()) + 1 if len(ids) else 0,
-                               dtype=torch.int32, device=dev))
+            desc_sum=torch.from_numpy(desc_sum).to(dev),
+            desc_cnt=torch.from_numpy(desc_cnt).to(dev),
+            n_points=torch.from_numpy(n_points).to(dev),
+            next_id=torch.full((), next_id, dtype=torch.int32, device=dev),
+            **repl)
+        # the host's next_id bound restarts from the restored value
+        self._nid_reqs.clear()
+        self._nid_known = (next_id, self.kf_id)
+
+    def _restore_debug(self, scene_dict, ids, get, n_points, desc_sum,
+                       desc_cnt, tops) -> None:
+        """The debug half of :meth:`restore_dict` (the reference's order,
+        ``ovo_tpu/mapping/semantic.py:758-829``): fills the mapper's
+        records, and ``n_points``, ``desc_sum``, ``desc_cnt`` and ``tops``
+        (instance -> its heap's (area, kf) pairs) in place."""
+        self.frame_ids = [int(x) for x in
+                          np.asarray(scene_dict["frame_id"]).ravel()]
+        self.kf_id = len(self.frame_ids)
+        ins_map = scene_dict.get("ins_map")
+        self.kf_ins_maps = {}
+        if ins_map is not None and len(np.asarray(ins_map)):
+            arr = np.asarray(ins_map)
+            for k in range(min(len(arr), self.kf_id)):
+                self.kf_ins_maps[k] = arr[k]
+        rec: Dict[int, Dict[int, int]] = {}
+        for i in ids:
+            i = int(i)
+            kfs, top = get(i, "keyframes_ids"), get(i, "top_kfs")
+            areas_of = {}
+            if top is not None:
+                for area, kf in np.asarray(top).reshape(-1, 2):
+                    areas_of[int(kf)] = int(area)
+            if kfs is not None:
+                for kf in np.asarray(kfs).ravel():
+                    rec.setdefault(int(kf), {})[i] = areas_of.get(int(kf), 0)
+            pts = get(i, "points_ids")
+            if pts is not None:
+                n_points[i] = len(np.asarray(pts).ravel())
+            if top is not None and not self.unbounded_top_k:
+                pairs = np.asarray(top).reshape(-1, 2).astype(np.int64)
+                order = np.lexsort((pairs[:, 1], pairs[:, 0]))
+                tops[i] = pairs[order][-self.store.n_slots:]
+        self.kf_records = {
+            kf: (np.fromiter(a.keys(), np.int32, len(a)),
+                 np.fromiter(a.values(), np.int32, len(a)))
+            for kf, a in rec.items()}
+        self.kf_descriptors = {}
+        dev = self.device
+        for kf in range(self.kf_id):
+            d_ids, d_descs = [], []
+            for i in ids:
+                d = scene_dict.get(f"kf_{kf}_ins3d_{int(i)}_clips")
+                if d is not None:
+                    d = np.asarray(d, np.float32).reshape(-1)[:self.clip_dim]
+                    d_ids.append(int(i))
+                    d_descs.append(d)
+                    desc_sum[int(i)] += d
+                    desc_cnt[int(i)] += 1
+            if d_ids:
+                self.kf_descriptors[kf] = (
+                    torch.tensor(d_ids, dtype=torch.int32, device=dev),
+                    torch.from_numpy(np.stack(d_descs)).to(dev),
+                    torch.ones(len(d_ids), dtype=torch.bool, device=dev))
 
     # ------------------------------------------------------------------
     # Query / classification (after mapping: host reads are fine here)

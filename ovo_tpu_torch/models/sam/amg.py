@@ -229,16 +229,37 @@ def greedy_box_nms(boxes: torch.Tensor, scores: torch.Tensor,
 
 
 def _amg_program(model: SAMModel, image: torch.Tensor, points: torch.Tensor,
-                 *, pred_iou_thresh, stability_thresh, stability_offset,
-                 mask_threshold, box_nms_thresh, nms_iou_th, nms_score_th,
-                 nms_inner_th, max_masks, candidates, min_area,
-                 gate_prompts=None, out_hw: Tuple[int, int]):
+                 **kw):
     """One keyframe's masks: (seg (H, W) i32, bmaps (M, H, W) bool,
     valid (M,), stability (M,) with -inf at invalid slots)."""
+    return _amg_masks(model, *model.encode_image(_preprocess(model, image)),
+                      points, **kw)
+
+
+def _amg_program_batch(model: SAMModel, images: torch.Tensor,
+                       points: torch.Tensor, **kw):
+    """A micro-batch of keyframes (B, H, W, 3): the trunk and the neck run
+    once over the B images, then each image's masks as
+    :func:`_amg_program`'s; the four outputs stacked on a leading B."""
+    embeds, high_res = model.encode_images(torch.cat(
+        [_preprocess(model, img) for img in images]))
+    outs = [_amg_masks(model, embeds[b], [h[b] for h in high_res], points,
+                       **kw) for b in range(images.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def _preprocess(model: SAMModel, image: torch.Tensor) -> torch.Tensor:
     if image.dtype == torch.uint8:
         image = image.float() / 255.0
-    x = model.preprocess(image)
-    image_embed, high_res = model.encode_image(x)
+    return model.preprocess(image)
+
+
+def _amg_masks(model: SAMModel, image_embed: torch.Tensor, high_res,
+               points: torch.Tensor, *, pred_iou_thresh, stability_thresh,
+               stability_offset, mask_threshold, box_nms_thresh, nms_iou_th,
+               nms_score_th, nms_inner_th, max_masks, candidates, min_area,
+               gate_prompts=None, out_hw: Tuple[int, int]):
+    """The masks of one encoded image (the decoder onwards)."""
     # multimask outputs only (channels 1:4); the gate keeps the top prompts
     # by predicted IoU for the upscale tail
     out = model.decode_grid(image_embed, high_res, points,
@@ -351,6 +372,22 @@ class AutomaticMaskSource:
             self.model, img, self.points, **self._amg_kwargs((h, w)))
         if self.min_area and self.min_area_mode == "connected":
             seg, bmaps, valid = self._small_regions(seg, bmaps, valid, stab)
+        return seg, bmaps, valid
+
+    @torch.no_grad()
+    def get_masks_batch(self, images, frame_ids=None):
+        """A micro-batch of keyframes in one trunk pass (masks are
+        map-independent, so batching keeps per-keyframe semantics): images
+        (B, H, W, 3) u8 -> (seg (B, H, W), binary maps (B, M, H, W), valid
+        (B, M)) on the model's device."""
+        imgs = to_device(images, self.device)
+        h, w = imgs.shape[1:3]
+        seg, bmaps, valid, stab = _amg_program_batch(
+            self.model, imgs, self.points, **self._amg_kwargs((h, w)))
+        if self.min_area and self.min_area_mode == "connected":
+            outs = [self._small_regions(seg[b], bmaps[b], valid[b], stab[b])
+                    for b in range(seg.shape[0])]
+            seg, bmaps, valid = (torch.stack(o) for o in zip(*outs))
         return seg, bmaps, valid
 
 

@@ -23,6 +23,12 @@ bf16, so the port runs the reference's route at every configuration):
 The image side enters with batch 1: the first layer reads the shared image
 embedding through a batch stride of 0, and the keys become per prompt at
 the first norm4.
+
+The mask tail (second upscale, high-res skip, gelu, hypernet dot) takes the
+reference's route, PyTorch ops (``mask_tail="unfused"``), or, by name,
+kernel B13 (``mask_tail="fused"``, ``ops/mask_tail.fused_mask_tail``; bf16
+decoders only: the reference defines that tail in bf16, with its tanh-gelu
+rounded op by op).
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ from ...ops.attention import (cross_attention_small_head, cross_i2t_from_keys,
                               dot_product_attention)
 from ...ops.decoder_route import ROUTES, decoder_route
 from ...ops.layer_norm import residual_layer_norm
+from ...ops.mask_tail import (fused_mask_tail, gather_hr0q,
+                              mask_tail_to_raster)
 from ..layers import gelu
 from .hiera import lin, mlp, norm
 from .params import Init
@@ -42,6 +50,7 @@ from .params import Init
 Params = Dict[str, Any]
 
 NUM_MASK_TOKENS = 4  # 1 single-mask + 3 multimask outputs
+MASK_TAILS = ("unfused", "fused")
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +296,8 @@ def decode_masks(params: Params, image_embed: torch.Tensor,
                  heads: int = 8,
                  mask_channels: Optional[Tuple[int, ...]] = None,
                  top_prompts: Optional[int] = None, *,
-                 route: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                 route: Optional[str] = None,
+                 mask_tail: str = "unfused") -> Dict[str, torch.Tensor]:
     """One batched decoding pass.
 
     image_embed (H, W, d) shared stride-16 embedding; image_pe (H, W, d);
@@ -296,13 +306,23 @@ def decode_masks(params: Params, image_embed: torch.Tensor,
     top_prompts: when set (< B), only the top_prompts prompts by max-channel
     predicted IoU pay the upscale tail, in ascending prompt order (exactly
     the ungated output restricted to them, ``prompt_sel``); route: the
-    two-way transformer's route (default: the reference's choice).
+    two-way transformer's route (default: the reference's choice);
+    mask_tail: ``"unfused"`` (the reference's PyTorch ops) or ``"fused"``
+    (kernel B13, bf16 decoders with high-res features only).
 
     Returns {"masks": (B', C, 4H, 4W) f32 logits, "iou": (B', C),
     "obj_score": (B',), "prompt_sel": (B',)}."""
     B = sparse_prompts.shape[0]
     H, W, d = image_embed.shape
     cdtype = image_embed.dtype
+    if mask_tail not in MASK_TAILS:
+        raise ValueError(f"mask_tail {mask_tail!r} is not one of "
+                         f"{MASK_TAILS}")
+    if mask_tail == "fused" and (cdtype != torch.bfloat16
+                                 or high_res_feats is None):
+        raise ValueError(f"mask_tail='fused' takes a bf16 decoder with "
+                         f"high-res features; got {cdtype}, high_res_feats "
+                         f"{'absent' if high_res_feats is None else 'set'}")
     prefix = torch.cat([params["obj_score_token"][None],
                         params["iou_token"][None], params["mask_tokens"]],
                        dim=0).to(cdtype)                     # (6, d)
@@ -341,16 +361,27 @@ def decode_masks(params: Params, image_embed: torch.Tensor,
     up = gelu(norm(params["upscale_ln"], up))
     hyper = torch.stack([_mlp3(params["hyper_mlps"][i], mask_tokens[:, i])
                          for i in chans], dim=1)       # (B, C, up2)
-    up = _up_blocked(params["upscale2"], up)   # (B, H, W, 2, 2, 2, 2, up2)
-    if high_res_feats is not None:
-        hr0 = high_res_feats[0]                     # (4H, 4W, up2) raster
-        up = up + hr0.reshape(H, 2, 2, W, 2, 2, -1).permute(
-            0, 3, 1, 4, 2, 5, 6)[None]
-    up = gelu(up)
-    up = up.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(B, 4 * H, 4 * W, -1)
-    # f32 products and sums, as the reference's preferred_element_type: the
-    # logits meet thresholds at 0 and +-1
-    masks = torch.einsum("bkc,bhwc->bkhw", hyper.float(), up.float())
+    if mask_tail == "fused":
+        # up (B, H, W, 2, 2, c1) is already (B, H*W*4, c1) in (h, w, i, j)
+        # row order
+        p2 = params["upscale2"]
+        c1, c2 = p2["w"].shape[2], p2["w"].shape[3]
+        masks = mask_tail_to_raster(fused_mask_tail(
+            up.reshape(B, H * W * 4, c1),
+            p2["w"].to(cdtype).reshape(4, c1, c2).contiguous(),
+            p2["b"].to(cdtype), gather_hr0q(high_res_feats[0], H, W),
+            hyper, H=H, W=W), H, W)
+    else:
+        up = _up_blocked(params["upscale2"], up)  # (B, H, W, 2, 2, 2, 2, up2)
+        if high_res_feats is not None:
+            hr0 = high_res_feats[0]                 # (4H, 4W, up2) raster
+            up = up + hr0.reshape(H, 2, 2, W, 2, 2, -1).permute(
+                0, 3, 1, 4, 2, 5, 6)[None]
+        up = gelu(up)
+        up = up.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(B, 4 * H, 4 * W, -1)
+        # f32 products and sums, as the reference's preferred_element_type:
+        # the logits meet thresholds at 0 and +-1
+        masks = torch.einsum("bkc,bhwc->bkhw", hyper.float(), up.float())
     obj = _mlp3(params["obj_head"], obj_token)[:, 0]
     return {"masks": masks, "iou": iou_all, "obj_score": obj,
             "prompt_sel": prompt_sel}

@@ -7,8 +7,12 @@ but the global blocks, and an interpolated background pos-embed plus a
 tiled window pos-embed. A stage-transition block keeps the previous stage's
 window size (its queries pool 2x inside each window). Global blocks run
 through kernel B1 and window blocks through kernel B2
-(``ops/attention.dot_product_attention``). Feature maps are NHWC; the
-residual stream keeps the reference's persistent blocked window layout.
+(``ops/attention.dot_product_attention``), the reference's route
+(``window_attn="heads"``); ``window_attn="packed"`` sends every window
+block that passes the reference's ``use_packed_heads`` gate through kernel
+B11 (``ops/attention.packed_heads_attention``) instead, on the head-packed
+(B, L, heads * hd) layout. Feature maps are NHWC; the residual stream keeps
+the reference's persistent blocked window layout.
 """
 from __future__ import annotations
 
@@ -18,13 +22,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ...ops.attention import dot_product_attention
+from ...ops.attention import (dot_product_attention, packed_heads_attention,
+                              use_packed_heads)
 from ...ops.patchify import patch_embed_s4
 from ...ops.resize import resize_channels_last
 from ..layers import gelu, layer_norm, linear
 from .params import Init
 
 Params = Dict[str, Any]
+WINDOW_ATTN = ("heads", "packed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,11 +170,14 @@ def _max_pool2x(x: torch.Tensor, stride: int) -> torch.Tensor:
 
 
 def _mh_attention(p: Params, x: torch.Tensor, heads: int, dout: int,
-                  q_pool: Optional[int]) -> torch.Tensor:
+                  q_pool: Optional[int], *, packed: bool = False
+                  ) -> torch.Tensor:
     """MultiScaleAttention over token maps x (B, H, W, Cin): qkv -> optional
     2x2 max-pool of q -> attention -> proj. Returns (B, H', W', dout). The
     head-split q / k / v are strided views of the qkv projection; the
-    kernels read them in place and write token-major output."""
+    kernels read them in place and write token-major output. ``packed``:
+    kernel B11 on the (B, L, dout) column slices where its gate takes the
+    shape, else :func:`dot_product_attention` on the head views."""
     B, H, W, _ = x.shape
     qkv = lin(p["qkv"], x.reshape(B, H * W, -1)).reshape(B, H * W, 3, dout)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -182,8 +191,11 @@ def _mh_attention(p: Params, x: torch.Tensor, heads: int, dout: int,
     def split(t):
         return t.reshape(B, t.shape[1], heads, hd).transpose(1, 2)
 
-    o = dot_product_attention(split(q), split(k), split(v))
-    o = o.transpose(1, 2).reshape(B, Hq * Wq, dout)
+    if packed and use_packed_heads(q.shape[1], k.shape[1], dout, heads):
+        o = packed_heads_attention(q, k, v, heads=heads)
+    else:
+        o = dot_product_attention(split(q), split(k), split(v))
+        o = o.transpose(1, 2).reshape(B, Hq * Wq, dout)
     return lin(p["proj"], o).reshape(B, Hq, Wq, dout)
 
 
@@ -191,10 +203,15 @@ def _mh_attention(p: Params, x: torch.Tensor, heads: int, dout: int,
 # forward
 # ---------------------------------------------------------------------------
 
-def hiera_forward(params: Params, cfg: HieraConfig, imgs: torch.Tensor
-                  ) -> List[torch.Tensor]:
+def hiera_forward(params: Params, cfg: HieraConfig, imgs: torch.Tensor, *,
+                  window_attn: str = "heads") -> List[torch.Tensor]:
     """imgs (B, H, W, 3) normalized -> stage-end feature maps
-    [(B, H_s, W_s, C_s)], highest resolution first."""
+    [(B, H_s, W_s, C_s)], highest resolution first. ``window_attn``: the
+    window blocks' attention, ``"heads"`` (the reference's: B2 on head
+    views) or ``"packed"`` (B11 on the head-packed layout)."""
+    if window_attn not in WINDOW_ATTN:
+        raise ValueError(f"window_attn {window_attn!r} is not one of "
+                         f"{WINDOW_ATTN}")
     x = patch_embed_s4(imgs, params["patch"]["w"].to(imgs.dtype),
                        params["patch"]["b"])
     B, H, W, C = x.shape
@@ -240,7 +257,8 @@ def hiera_forward(params: Params, cfg: HieraConfig, imgs: torch.Tensor
         if do_pool:
             shortcut = _max_pool2x(shortcut, cfg.q_stride)
         att = _mh_attention(blk["attn"], xn, heads, dout,
-                            cfg.q_stride if do_pool else None)
+                            cfg.q_stride if do_pool else None,
+                            packed=ws > 0 and window_attn == "packed")
         if do_pool:
             Hc, Wc = Hc // cfg.q_stride, Wc // cfg.q_stride
             if lws:

@@ -113,28 +113,37 @@ class SAMModel:
         img = resize_channels_last(image, (s, s))
         return ((img - self._mean) / self._std)[None].to(self.cfg.dtype)
 
-    def encode_image(self, image: torch.Tensor
-                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """-> (image_embed (H16, W16, d), high_res [(H4, W4, 32),
-        (H8, W8, 64)]) for the decoder."""
-        feats = hiera_forward(self.params["trunk"], self.cfg.hiera, image)
+    def encode_images(self, images: torch.Tensor, *,
+                      window_attn: str = "heads"
+                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """(B, S, S, 3) preprocessed images -> (image_embeds (B, H16, W16,
+        d), high_res [(B, H4, W4, 32), (B, H8, W8, 64)]): the trunk and the
+        neck run once over the batch; ``window_attn`` picks the trunk's
+        window attention (``hiera.hiera_forward``)."""
+        feats = hiera_forward(self.params["trunk"], self.cfg.hiera, images,
+                              window_attn=window_attn)
         fpn = neck_forward(self.params["neck"], feats)
         # scalp: the lowest-resolution level (stride 32) is dropped
         s4, s8, s16 = fpn[0], fpn[1], fpn[2]
         dec = self.params["decoder"]
-        high_res = [conv1x1(dec["conv_s0"], s4)[0],
-                    conv1x1(dec["conv_s1"], s8)[0]]
-        return s16[0], high_res
+        return s16, [conv1x1(dec["conv_s0"], s4), conv1x1(dec["conv_s1"], s8)]
+
+    def encode_image(self, image: torch.Tensor, *, window_attn: str = "heads"
+                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """(1, S, S, 3) -> (image_embed (H16, W16, d), high_res [(H4, W4,
+        32), (H8, W8, 64)]) for the decoder (:meth:`encode_images`)."""
+        embeds, high_res = self.encode_images(image, window_attn=window_attn)
+        return embeds[0], [h[0] for h in high_res]
 
     def decode_grid(self, image_embed: torch.Tensor,
                     high_res: List[torch.Tensor], points01: torch.Tensor,
                     mask_channels=None, top_prompts=None, *,
-                    route: Optional[str] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    route: Optional[str] = None,
+                    mask_tail: str = "unfused") -> Dict[str, torch.Tensor]:
         """Batched single-point prompts: points01 (P, 2) in [0, 1] -> masks
         (P', C, H4, W4) logits + iou (P', C) over ``mask_channels`` (P' =
-        top_prompts when the predicted-IoU gate is active); ``route``
-        forces the decoder's route (``decoder.decode_masks``)."""
+        top_prompts when the predicted-IoU gate is active); ``route`` and
+        ``mask_tail`` pick the decoder's routes (``decoder.decode_masks``)."""
         H, W, _ = image_embed.shape
         P = points01.shape[0]
         sparse = encode_points(
@@ -144,4 +153,5 @@ class SAMModel:
         return decode_masks(self.params["decoder"], image_embed, image_pe,
                             sparse, high_res_feats=high_res,
                             mask_channels=mask_channels,
-                            top_prompts=top_prompts, route=route)
+                            top_prompts=top_prompts, route=route,
+                            mask_tail=mask_tail)

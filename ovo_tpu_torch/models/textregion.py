@@ -12,6 +12,10 @@
      of tokens) shared by every token, v = tokens, key mask = mask > 0)
      through kernel B6 (``ops/masked_pool``), tokens shared across masks;
   5. projection + L2 normalization in f32.
+
+``embed_masks_batch`` runs the ViT once over the views of a micro-batch of
+keyframes (B x (1 + crops)), then pools each keyframe's masks as
+``embed_masks`` does.
 """
 from __future__ import annotations
 
@@ -51,6 +55,34 @@ class TextRegionEmbedder(BaseCLIPEmbedder):
         masks = to_device(binary_maps, self.device)
         return self._predict(img, masks)
 
+    @torch.no_grad()
+    def embed_masks_batch(self, images, binary_maps, valid) -> torch.Tensor:
+        """images (B, H, W, 3), binary_maps (B, M, H, W) -> (B, M,
+        clip_dim): one tower call over the B x (1 + crops) views."""
+        from .. import to_device
+
+        imgs = to_device(images, self.device)
+        if imgs.dtype not in (torch.uint8, torch.float32):
+            imgs = imgs.float() / 255.0
+        masks = to_device(binary_maps, self.device)
+        kw = self._program_kwargs(imgs.shape[1], imgs.shape[2])
+        views = [_textregion_views(img, **kw) for img in imgs]
+        tokens = vit_mod.forward_features(
+            self.model.visual, self.model.cfg.vision, torch.cat(views),
+            norm=True).split([len(v) for v in views])
+        return torch.stack([_textregion_pool(
+            self.model.visual, self.model.cfg.vision, tok, m, **kw)
+            for tok, m in zip(tokens, masks)])
+
+    def _program_kwargs(self, h: int, w: int) -> dict:
+        ch, cw = self._crop_layout(h, w)
+        return dict(mean=self.model._mean, std=self.model._std,
+                    crop_size=self.crop_size, patch_size=self.patch_size,
+                    crop_num_h=ch, crop_num_w=cw,
+                    remove_global=self.remove_global_patch,
+                    gp_threshold=self.global_patch_threshold,
+                    project=self.project_and_normalize)
+
     def _crop_layout(self, h: int, w: int) -> Tuple[int, int]:
         if self.resize_method != "multi_resolution":
             return 0, 0
@@ -58,50 +90,58 @@ class TextRegionEmbedder(BaseCLIPEmbedder):
 
     def _predict(self, image: torch.Tensor, masks: torch.Tensor
                  ) -> torch.Tensor:
-        h, w = image.shape[:2]
-        ch, cw = self._crop_layout(h, w)
         return _textregion_program(
             self.model.visual, self.model.cfg.vision, image, masks,
-            mean=self.model._mean, std=self.model._std,
-            crop_size=self.crop_size, patch_size=self.patch_size,
-            crop_num_h=ch, crop_num_w=cw,
-            remove_global=self.remove_global_patch,
-            gp_threshold=self.global_patch_threshold,
-            project=self.project_and_normalize)
+            **self._program_kwargs(image.shape[0], image.shape[1]))
 
 
 @torch.no_grad()
 def _textregion_program(visual: vit_mod.VisionTransformer, cfg,
-                        image: torch.Tensor, masks: torch.Tensor, *,
-                        mean: torch.Tensor, std: torch.Tensor,
-                        crop_size: int, patch_size: int, crop_num_h: int,
-                        crop_num_w: int, remove_global: bool,
-                        gp_threshold: float, project: bool) -> torch.Tensor:
+                        image: torch.Tensor, masks: torch.Tensor,
+                        **kw) -> torch.Tensor:
+    inputs = _textregion_views(image, **kw)
+    tokens = vit_mod.forward_features(visual, cfg, inputs, norm=True)
+    return _textregion_pool(visual, cfg, tokens, masks, **kw)
+
+
+def _textregion_views(image: torch.Tensor, *, mean: torch.Tensor,
+                      std: torch.Tensor, crop_size: int, crop_num_h: int,
+                      crop_num_w: int, **_) -> torch.Tensor:
+    """The tower's input views of one image: the whole image, then the crop
+    grid (ceil-covering tiles), each resized and normalized."""
     h, w = image.shape[:2]
     if image.dtype == torch.uint8:
         image = image.float() / 255.0
-    patch_num = crop_size // patch_size
-    n_prefix = 1 if cfg.use_cls_token else 0
 
     def prep(img_hw3):
         x = resize_channels_last(img_hw3, (crop_size, crop_size))
         return (x - mean) / std
 
     if crop_num_h == 0:  # single-resolution path
+        return prep(image)[None]
+    crop_h, crop_w = -(-h // crop_num_h), -(-w // crop_num_w)
+    views = [prep(image)]
+    for hi in range(crop_num_h):
+        for wi in range(crop_num_w):
+            y1 = max(min(hi * crop_h + crop_h, h) - crop_h, 0)
+            x1 = max(min(wi * crop_w + crop_w, w) - crop_w, 0)
+            views.append(prep(image[y1:y1 + crop_h, x1:x1 + crop_w]))
+    return torch.stack(views)
+
+
+def _textregion_pool(visual: vit_mod.VisionTransformer, cfg,
+                     tokens: torch.Tensor, masks: torch.Tensor, *,
+                     crop_size: int, patch_size: int, crop_num_h: int,
+                     crop_num_w: int, remove_global: bool,
+                     gp_threshold: float, project: bool, **_
+                     ) -> torch.Tensor:
+    """One image's tower tokens (its views) and masks -> descriptors."""
+    patch_num = crop_size // patch_size
+    n_prefix = 1 if cfg.use_cls_token else 0
+    if crop_num_h == 0:
         pph = ppw = patch_num
-        inputs = prep(image)[None]
     else:
         pph, ppw = patch_num * crop_num_h, patch_num * crop_num_w
-        crop_h, crop_w = -(-h // crop_num_h), -(-w // crop_num_w)
-        views = [prep(image)]
-        for hi in range(crop_num_h):
-            for wi in range(crop_num_w):
-                y1 = max(min(hi * crop_h + crop_h, h) - crop_h, 0)
-                x1 = max(min(wi * crop_w + crop_w, w) - crop_w, 0)
-                views.append(prep(image[y1:y1 + crop_h, x1:x1 + crop_w]))
-        inputs = torch.stack(views)
-
-    tokens = vit_mod.forward_features(visual, cfg, inputs, norm=True)
     tokens = tokens[:, n_prefix:]                       # drop cls
 
     if crop_num_h == 0:

@@ -1,5 +1,5 @@
 """Attention for the towers and the SAM decoder: plain references and the
-hand-written kernels B1-B5, B7, B9a / B9b and B10.
+hand-written kernels B1-B5, B7, B9a / B9b, B10 and B11.
 
 Port of the parts of ``ovo_tpu/ops/attention.py`` the port's slices run:
 
@@ -12,6 +12,9 @@ Port of the parts of ``ovo_tpu/ops/attention.py`` the port's slices run:
     and ``windowed_fused_attention`` (B2, ``:395``) behind
     ``dot_product_attention``, for the CLIP / SigLIP towers, the Hiera trunk,
     the text towers and the decoder's token self-attention;
+  - ``packed_heads_attention`` (B11, ``:499``): window attention on the
+    head-packed (B, L, heads * hd) layout, the Hiera trunk's window blocks
+    under ``window_attn="packed"``;
   - ``cross_t2i_from_keys`` (B3, ``:1120``), ``cross_i2t_tail_from_keys``
     (B4, ``:1075``) and ``cross_i2t_from_keys`` (B7, ``:1143``): the
     decoder's projection-fused cross attentions;
@@ -371,6 +374,91 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route == "windowed":
         return windowed_fused_attention(q, k, v, scale=scale)
     return flash_attention(q, k, v, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# B11: window attention on the head-packed layout
+# ---------------------------------------------------------------------------
+
+def use_packed_heads(lq: int, lk: int, dout: int, heads: int) -> bool:
+    """The reference's gate of ``packed_heads_attention``
+    (``ovo_tpu/ops/attention.py:541``) less its TPU terms (the backend test
+    and the VMEM block budget): heads of a width that is a multiple of 8,
+    both lengths at most 512."""
+    return (dout % heads == 0 and (dout // heads) % 8 == 0
+            and lq <= WINDOWED_MAX_LEN and lk <= WINDOWED_MAX_LEN)
+
+
+def packed_heads_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, *, heads: int,
+                                 scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """Plain PyTorch version of kernel B11 (``_packed_heads_kernel``): per
+    head, f32 scores with ``scale`` after the dot, f32 softmax, p rounded to
+    v's dtype, f32 p.v, each head rounded to q's dtype in its columns."""
+    B, Lq, dout = q.shape
+    hd = dout // heads
+
+    def split(t):
+        return t.reshape(t.shape[0], t.shape[1], heads, hd).transpose(1, 2)
+
+    o = xla_attention(split(q), split(k), split(v), scale=scale)
+    return o.transpose(1, 2).reshape(B, Lq, dout)
+
+
+def packed_heads_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, heads: int, scale: Optional[float] = None
+                           ) -> torch.Tensor:
+    """(B, Lq, heads*hd) x (B, Lk, heads*hd) head-packed attention -> (B,
+    Lq, heads*hd) (B11): many small instances, both lengths at most 512, Lq
+    and Lk may differ. Any batch and row strides with a contiguous last dim
+    (the q, k, v column slices of a packed qkv projection are read in
+    place); head sizes in ``WINDOWED_HEAD_DIMS`` on the card.
+
+    CPU tensors run :func:`packed_heads_attention_plain`; CUDA tensors
+    launch kernel B11 (``csrc/packed_heads_attention.cu``) or raise."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"packed_heads_attention: q (B, Lq, D), k == v (B, "
+                         f"Lk, D) expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Lq, dout = q.shape
+    Lk = k.shape[1]
+    if k.shape[0] != B or k.shape[2] != dout or heads < 1 or dout % heads:
+        raise ValueError(f"packed_heads_attention: k {tuple(k.shape)} does "
+                         f"not match q {tuple(q.shape)} with {heads} heads")
+    hd = dout // heads
+    scale = scale if scale is not None else hd ** -0.5
+    if q.device.type == "cpu":
+        return packed_heads_attention_plain(q, k, v, heads=heads, scale=scale)
+    dev, dtype = _check_device_tensors("packed_heads_attention", (q, k, v))
+    if max(Lq, Lk) > WINDOWED_MAX_LEN or hd not in WINDOWED_HEAD_DIMS:
+        raise ValueError(f"packed_heads_attention takes Lq, Lk <= "
+                         f"{WINDOWED_MAX_LEN} and head sizes in "
+                         f"{WINDOWED_HEAD_DIMS}; got Lq={Lq}, Lk={Lk}, "
+                         f"hd={hd}")
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        if (t.stride(2) != 1 or t.stride(0) % 4 or t.stride(1) % 4
+                or t.data_ptr() % (4 * t.element_size())):
+            raise ValueError(f"packed_heads_attention: {n} needs a contiguous "
+                             f"last dim, batch and row strides in multiples "
+                             f"of 4 and a 4-element aligned pointer; got "
+                             f"strides {t.stride()}")
+    out = torch.empty((B, Lq, dout), dtype=dtype, device=dev)
+    fn = cuda_build.library(
+        "packed_heads_attention").ovo_packed_heads_attention
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_float] + [ctypes.c_longlong] * 6 + [ctypes.c_int,
+                                                     ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                 Lq, Lk, dout, heads, float(scale), q.stride(0), q.stride(1),
+                 k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+                 _DTYPES[dtype], stream)
+    cuda_build.check(err, "packed_heads_attention")
+    cuda_build.count_launch("packed_heads_attention")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -28,12 +28,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ovo_tpu_torch"
 KERNELS = ("rope_packed_attention", "masked_pool", "flash_attention",
            "windowed_attention", "cross_t2i", "cross_i2t_tail",
            "fused_attention", "fused_attn_block", "fused_mlp_block",
-           "cross_small_head", "cross_i2t_proj", "residual_layer_norm")
-# launches are counted per kernel: one per library, but for the two
-# directions of cross_small_head (B9a, B9b)
-LAUNCH_NAMES = tuple(n for k in KERNELS for n in (
-    ("cross_small_head_t2i", "cross_small_head_i2t")
-    if k == "cross_small_head" else (k,)))
+           "cross_small_head", "cross_i2t_proj", "residual_layer_norm",
+           "packed_heads_attention", "mask_tail")
+# launches are counted per kernel: one per library, but for the libraries
+# that hold two kernels (B9a / B9b, B8 / B14)
+_TWO_KERNELS = {
+    "cross_small_head": ("cross_small_head_t2i", "cross_small_head_i2t"),
+    "residual_layer_norm": ("residual_layer_norm", "layer_norm_rows")}
+LAUNCH_NAMES = tuple(n for k in KERNELS for n in _TWO_KERNELS.get(k, (k,)))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,7 +1,8 @@
-"""The fused residual + LayerNorm of the SAM decoder's image side (norm4):
-kernel B8 and its plain version.
+"""Row LayerNorms: the fused residual + LayerNorm of the SAM decoder's
+image side (norm4, kernel B8) and the plain row LayerNorm (kernel B14),
+each with its plain version.
 
-Port of ``ovo_tpu/ops/layer_norm.py:148`` (``residual_layer_norm`` ->
+B8 is the port of ``ovo_tpu/ops/layer_norm.py:148`` (``residual_layer_norm`` ->
 ``_res_ln_call``): LayerNorm(x + res) over the last axis with the sum,
 the statistics (``mean((x - mean)^2)``, two passes) and the affine in f32,
 and one cast of the output to x's dtype. A batch-1 residual is read
@@ -12,6 +13,12 @@ row block within the VMEM budget, and at least 65536 rows to beat XLA's
 dispatch); the CUDA kernel takes any C that is a multiple of 4 up to 1024,
 so inside the decoder's unfused and proj routes norm4 always launches it
 on the card.
+
+B14 is the port of ``ovo_tpu/ops/layer_norm.py:82`` (``layer_norm_rows`` ->
+``_ln_call``): the same LayerNorm without the residual, over the last axis
+of any leading shape, C up to 2048. The reference wires it into no tower
+(its shape gate ``fits`` is kept here, as the reference has it, for the
+callers that drive it by name); nothing in the port's towers calls it.
 """
 from __future__ import annotations
 
@@ -22,19 +29,95 @@ import torch
 from . import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_C = 1024
+MAX_C = 1024          # B8
+ROWS_MAX_C = 2048     # B14
+# the reference's TPU gate (scoped-VMEM budget of a row block)
+_VMEM_BUDGET = 12 * 1024 * 1024
+
+
+def _ln_f32(xf: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """LayerNorm of an f32 tensor over its last axis: two-pass statistics
+    (``mean((x - mean)^2)``) and the affine in f32."""
+    mean = xf.mean(dim=-1, keepdim=True)
+    cen = xf - mean
+    var = (cen * cen).mean(dim=-1, keepdim=True)
+    return cen * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
 def residual_layer_norm_plain(x: torch.Tensor, res: torch.Tensor,
                               scale: torch.Tensor, bias: torch.Tensor,
                               eps: float = 1e-5) -> torch.Tensor:
     """Plain PyTorch version of kernel B8 (``_res_ln_kernel``)."""
-    xf = x.float() + res.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    cen = xf - mean
-    var = (cen * cen).mean(dim=-1, keepdim=True)
-    y = cen * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    return _ln_f32(x.float() + res.float(), scale, bias, eps).to(x.dtype)
+
+
+def layer_norm_rows_plain(x: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, eps: float = 1e-5
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of kernel B14 (``_ln_kernel``)."""
+    return _ln_f32(x.float(), scale, bias, eps).to(x.dtype)
+
+
+def _row_block(c: int, itemsize: int):
+    for rb in (1024, 512, 256, 128, 64, 32, 16, 8):
+        if 2 * itemsize * (2 * rb * c) + 4 * rb * c <= _VMEM_BUDGET:
+            return rb
+    return None
+
+
+def fits(rows: int, c: int, itemsize: int) -> bool:
+    """The reference's shape gate of ``layer_norm_rows``
+    (``ovo_tpu/ops/layer_norm.py:74``): a lane-tileable C, a row block
+    within the TPU's VMEM budget, and at least 1024 rows."""
+    return c % 128 == 0 and rows >= 1024 and _row_block(c, itemsize) \
+        is not None
+
+
+def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis of ``x`` (any leading shape), scale /
+    bias (C,): the statistics and the affine in f32, one cast to x's dtype.
+
+    CPU tensors run :func:`layer_norm_rows_plain`; CUDA tensors launch
+    kernel B14 (``csrc/residual_layer_norm.cu``, ``ovo_layer_norm_rows``)
+    or raise."""
+    if x.dim() < 1:
+        raise ValueError("layer_norm_rows: x needs a last axis")
+    C = x.shape[-1]
+    if scale.shape != (C,) or bias.shape != (C,):
+        raise ValueError(f"layer_norm_rows: scale / bias must be ({C},)")
+    if x.device.type == "cpu":
+        return layer_norm_rows_plain(x, scale, bias, eps)
+    if x.device.type != "cuda" or x.dtype not in _DTYPES:
+        raise ValueError(f"layer_norm_rows: kernel takes f32 / bf16 CUDA "
+                         f"tensors, got {x.dtype} on {x.device}")
+    if C % 4 or C > ROWS_MAX_C:
+        raise ValueError(f"layer_norm_rows: C must be a multiple of 4 up to "
+                         f"{ROWS_MAX_C}, got {C}")
+    if not x.is_contiguous():
+        raise ValueError("layer_norm_rows: x must be contiguous")
+    g, b = scale.float().contiguous(), bias.float().contiguous()
+    if g.device != x.device or b.device != x.device:
+        raise ValueError(f"layer_norm_rows: scale / bias must be on "
+                         f"{x.device}")
+    if any(t.data_ptr() % 16 for t in (x, g, b)):
+        raise ValueError("layer_norm_rows: inputs must be 16-byte aligned")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    fn = cuda_build.library("residual_layer_norm").ovo_layer_norm_rows
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 x.numel() // C, C, float(eps), _DTYPES[x.dtype], stream)
+    cuda_build.check(err, "layer_norm_rows")
+    cuda_build.count_launch("layer_norm_rows")
+    return out
 
 
 def residual_layer_norm(x: torch.Tensor, res: torch.Tensor,

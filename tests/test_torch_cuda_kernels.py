@@ -1,9 +1,11 @@
 """The hand-written CUDA kernels B5 (rope_packed_attention), B6
 (masked_pool), B1-B4 (flash, windowed and the two decoder cross
 attentions), B10 (fused_attention), B12a / B12b (fused_attn_block,
-fused_mlp_block) and the decoder's other routes' B7 (cross_i2t_proj), B8
-(residual_layer_norm) and B9a / B9b (cross_small_head; limits beside their
-tests below) against their plain PyTorch versions, on a CUDA card. These tests skip without one (the kernels have no
+fused_mlp_block), the decoder's other routes' B7 (cross_i2t_proj), B8
+(residual_layer_norm) and B9a / B9b (cross_small_head), and B14
+(layer_norm_rows), B11 (packed_heads_attention) and B13 (fused_mask_tail)
+(limits beside their tests below) against their plain PyTorch versions, on
+a CUDA card. These tests skip without one (the kernels have no
 CPU mode). The file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
 
@@ -108,6 +110,12 @@ def _err(got, ref):
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     return (got.float() - ref.float()).abs().max().item()
+
+
+def _mismatch_share(got, ref, atol=2 ** -10):
+    """The share of elements of got that differ from ref by more than
+    atol."""
+    return ((got.float() - ref.float()).abs() > atol).float().mean().item()
 
 
 @pytest.mark.cuda
@@ -381,3 +389,86 @@ def test_residual_layer_norm_kernel_matches_plain(cuda_device, dtype, tol):
         b = _dev(rng.standard_normal(C), cuda_device, torch.float32)
         assert _err(residual_layer_norm(x, r, g, b),
                     residual_layer_norm_plain(x, r, g, b)) <= tol
+
+
+# ---------------------------------------------------------------------------
+# B14 (layer_norm_rows), B11 (packed_heads_attention) and B13
+# (fused_mask_tail): the kernels the reference wires into no route. Limits:
+# 1e-4 abs in f32 (sums in another order). bf16: B14 as B8 (a LayerNorm
+# times a scale up to 1.5 plus an N(0,1) bias, below 8, one f32 value
+# rounded on both sides: 6e-2); B11 as B2 (both sides round the normalized
+# weights: 1e-2). B13 is bf16 only: its f32 product over c1 is summed in
+# another order than the plain version's matmul, so a product on a bf16
+# rounding edge moves one gelu output a step (at most 2^-5 for |y| < 8),
+# times |hyper| < 4 in the hypernet dot: 0.125. That limit alone would
+# pass a tail whose gelu computes in f32 and rounds once (F.gelu: 0.118 from
+# the op-by-op tail at the AMG shape), a different function; so the share of
+# outputs off by more than 2^-10 is also bounded, by 1e-3: such flips touch
+# a few outputs in 10^5, the once-rounded gelu about 90% of them. The
+# limits are those of chip_smoke.py.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 6e-2)])
+def test_layer_norm_rows_kernel_matches_plain(cuda_device, dtype, tol):
+    from ovo_tpu_torch.ops.layer_norm import (layer_norm_rows,
+                                              layer_norm_rows_plain)
+
+    rng = np.random.default_rng(32)
+    # PE's LayerNorm rows, Hiera-L's stage 4 (C 1152: the wide rows), a
+    # ViT-H-14 width with a leading shape, a narrow odd one
+    for shape in ((4088, 1024), (1024, 1152), (7, 5, 1280), (33, 68)):
+        C = shape[-1]
+        x = _dev(rng.standard_normal(shape), cuda_device, dtype)
+        g = _dev(rng.random(C) + 0.5, cuda_device, torch.float32)
+        b = _dev(rng.standard_normal(C), cuda_device, torch.float32)
+        assert _err(layer_norm_rows(x, g, b),
+                    layer_norm_rows_plain(x, g, b)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_packed_heads_kernel_matches_plain(cuda_device, dtype, tol):
+    rng = np.random.default_rng(33)
+    # (windows, lq, lk, heads, hd): Hiera-L's stage 1 and stage 3 windows,
+    # a q-pooled transition (Lq < Lk), 16-wide heads
+    for B, lq, lk, heads, hd in ((40, 64, 64, 2, 72), (3, 196, 196, 8, 72),
+                                 (20, 16, 64, 4, 72), (9, 49, 49, 2, 16)):
+        dout = heads * hd
+        qkv = _dev(rng.standard_normal((B, lk, 3, dout)), cuda_device, dtype)
+        k, v = qkv[:, :, 1], qkv[:, :, 2]
+        # q as the trunk gives it: a column slice, or pooled and contiguous
+        q = qkv[:, :, 0] if lq == lk else _dev(
+            rng.standard_normal((B, lq, dout)), cuda_device, dtype)
+        got = A.packed_heads_attention(q, k, v, heads=heads)
+        ref = A.packed_heads_attention_plain(q, k, v, heads=heads)
+        assert got.shape == (B, lq, dout)
+        assert _err(got, ref) <= tol
+
+
+@pytest.mark.cuda
+def test_mask_tail_kernel_matches_plain(cuda_device):
+    from ovo_tpu_torch.ops import mask_tail as MT
+
+    rng = np.random.default_rng(34)
+    bf = torch.bfloat16
+    # (prompts, H, W, channels) at SAM2's widths (c1 64, c2 32): a ragged
+    # prompt group, and all four channels
+    c1, c2 = 64, 32
+    for B, H, W, C in ((11, 16, 16, 3), (3, 8, 4, 4)):
+        R = H * W * 4
+        up1g = _dev(rng.standard_normal((B, R, c1)), cuda_device, bf)
+        w2q = _dev(rng.standard_normal((4, c1, c2)) * 0.1, cuda_device, bf)
+        b2 = _dev(rng.standard_normal(c2) * 0.1, cuda_device, bf)
+        hr0q = _dev(rng.standard_normal((4, R, c2)), cuda_device, bf)
+        hyper = _dev(rng.standard_normal((B, C, c2)), cuda_device, bf)
+        args = (up1g, w2q, b2, hr0q, hyper)
+        got = MT.fused_mask_tail(*args, H=H, W=W)
+        assert got.shape == (B, 4, R, C) and got.dtype == torch.float32
+        ref = MT.fused_mask_tail_plain(*args)
+        assert _err(got, ref) <= 0.125
+        assert _mismatch_share(got, ref) <= 1e-3
+    with pytest.raises(ValueError, match="bf16"):
+        MT.fused_mask_tail(up1g.float(), w2q, b2, hr0q, hyper, H=H, W=W)

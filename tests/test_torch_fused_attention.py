@@ -135,6 +135,9 @@ def dispatched_shapes():
 
     key = jax.random.PRNGKey(0)
     img = jax.ShapeDtypeStruct((H, W, 3), jnp.float32)
+    # a jitted program traced before (by the reference's dispatch test, in
+    # the same process) would skip the recorder: start and end uncached
+    jax.clear_caches()
     jatt.select_attention_route = recorder
     try:
         program[0] = "sam2"
@@ -192,6 +195,7 @@ def dispatched_shapes():
                        jax.ShapeDtypeStruct((M_MASKS, 3, 1152), jnp.float32))
     finally:
         jatt.select_attention_route = orig
+        jax.clear_caches()
     return sorted(set(recorded))
 
 

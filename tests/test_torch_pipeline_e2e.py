@@ -128,34 +128,40 @@ def test_pipeline_recorded_descriptors_match_jax(tmp_path):
 
 
 def test_pipeline_rejects_unported_options(tmp_path):
+    """The viewer stream, the ORB-SLAM backbone and the multi-device keys
+    still raise; the profiler hook, map restore, SAM micro-batching and the
+    debug restore are ported (tests/test_torch_orchestrator.py) and
+    construct."""
     cfg = make_config(16)
     embeds = class_embeddings(16)
     kw = dict(mask_source=CallableMaskSource(synthetic_mask_fn, 16, "cpu"),
               embedder=RecordedEmbedder(16, mask_label_fn, embeds,
                                         device="cpu"),
               dataset=SyntheticWallDataset(n_frames=2), device="cpu")
-    for key, val in (("vis", {"stream": True}), ("profile_trace", "x"),
-                     ("restore_map", True)):
-        bad = copy.deepcopy(cfg)
-        bad[key] = val
-        with pytest.raises(NotImplementedError):
-            OVOSemMap(bad, tmp_path / key, **kw)
+    bad = copy.deepcopy(cfg)
+    bad["vis"] = {"stream": True}
+    with pytest.raises(NotImplementedError):
+        OVOSemMap(bad, tmp_path / "vis", **kw)
     bad = copy.deepcopy(cfg)
     bad["slam"]["slam_module"] = "orbslam"
     with pytest.raises(NotImplementedError):
         OVOSemMap(bad, tmp_path / "orb", **kw)
-    bad = copy.deepcopy(cfg)
-    bad["semantic"].setdefault("sam", {})["batch"] = 2
-    with pytest.raises(NotImplementedError):
-        OVOSemMap(bad, tmp_path / "batch", **kw)
-    # debug_info records are kept at run time; restoring them is not ported
-    dbg = copy.deepcopy(cfg)
-    dbg["debug_info"] = True
-    pipe = OVOSemMap(dbg, tmp_path / "debug_info", **kw)
-    assert pipe.ovo.debug_info
-    with pytest.raises(NotImplementedError):
-        pipe.ovo.restore_dict({"ins_3d_ids": np.zeros((0,), np.int64)},
-                              debug_info=True)
+    for key in ("point_shard", "shard_query", "dp_embed"):
+        bad = copy.deepcopy(cfg)
+        bad["semantic"]["parallel"] = {key: True}
+        with pytest.raises(NotImplementedError):
+            OVOSemMap(bad, tmp_path / key, **kw)
+    ok = copy.deepcopy(cfg)
+    ok["profile_trace"] = str(tmp_path / "trace")
+    ok["semantic"].setdefault("sam", {})["batch"] = 2
+    ok["debug"] = ok["debug_info"] = True
+    pipe = OVOSemMap(ok, tmp_path / "ported", **kw)
+    assert pipe.ovo.debug_info and pipe.ovo.sam_batch == 2
+    pipe.run()
+    restored = copy.deepcopy(ok)
+    restored["restore_map"] = True
+    again = OVOSemMap(restored, tmp_path / "ported", **kw)
+    assert again.first_frame == 2 and again.ovo.kf_id == pipe.ovo.kf_id
 
 
 def test_precomputed_masks_through_factory_match_live(tmp_path):
