@@ -16,7 +16,10 @@ non-zero and prints no result):
              and B9a / B9b at the 1280^2 decoder's shapes, shared and
              per-prompt image sides; B11 at Hiera-L's stage-1 and stage-3
              windows, B13 (bf16 only) at 128 and 256 prompts, B14 at its
-             gated shapes
+             gated shapes; B1, B2 and B11 in bf16 also within ATTN_SHARE
+             outputs off by more than one bf16 step, which the wrong
+             functions (B1's weights rounded once, B2's rounded before
+             normalizing) must break
   reference  the online pipeline on a small synthetic scene with the tiny-pe
              card, on the card (kernels) and on the CPU (plain versions):
              equal point map and instances, descriptors within cosine 1e-4
@@ -95,6 +98,9 @@ non-zero and prints no result):
              OVO_FUSED_BLOCK=1: per embedded keyframe 24 B12a, 24 B12b, 1
              B6 and no B5 launches, B1-B4 as in the amg_slice; no host sync
              in the frame loop; a finite mIoU / mAcc; each phase's wall
+  kernel_device  B1, B2 and B11 in bf16 at the kernel phase's shapes: the
+             card's kernel time per call from a torch.profiler trace,
+             beside SDPA's (last, since a trace slows later launches)
   kernels    the kernels with their launch counts on the path that runs
              them: the amg_slice (B1-B6), the crop_slice (B10), the cli
              (B12a / B12b), the amg1280_slice (B9a, B9b, B8), the
@@ -275,6 +281,31 @@ def time_ms(fn, warmup: int = 5, iters: int = 30) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """The card's kernel time per call of fn, from a torch.profiler trace
+    of the card's activity (sum of its kernels' intervals over the calls):
+    free of the host time between two CUDA events, which dominates calls
+    below ~0.15 ms. A trace leaves host time on every later launch of the
+    process, so this runs after every phase that times with CUDA events or
+    the host's clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # a trace now and then comes back without the card's events: take it
+    # again, and fail rather than report 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type.name == "CUDA")
+        if us > 0:
+            return us / 1e3 / iters
+    raise AssertionError("torch.profiler recorded no device time")
+
+
 def storage_bytes(*tensors) -> int:
     """Bytes each input holds once (a broadcast view counts its storage)."""
     return sum(t.untyped_storage().nbytes() for t in tensors)
@@ -422,6 +453,63 @@ def _heads_of_packed(gen, n, L, heads, hd, dev, dtype):
     return qkv, [qkv[:, :, i].transpose(1, 2) for i in range(3)]
 
 
+# B1, B2 and B11 in bf16: the share of outputs that differ from the plain
+# version by more than one bf16 step at the plain output's magnitude. The
+# max-abs limit (1e-2) alone passes a kernel that computes another function
+# at these sizes: B1 with its weights rounded once to bf16 (the reference
+# never rounds them), or B2 / B11 with exp(s - m)
+# rounded before it is normalized (the reference rounds the normalized
+# weight). On an H100 at the main paths' shapes (this script's kernel
+# rows) the kernels read 4.0e-4 (B1) and 8.0e-5 or less (B2, B11), the
+# wrong functions 0.118 to 0.168: the limit sits 25x above the kernels'
+# largest share and 12x below the wrong functions' smallest. On the CPU
+# (tests/test_torch_attention_share.py) a reordered f32 sum of the right
+# function, and B1's p_hi + p_lo split, stay under it at these widths and
+# the wrong functions break it.
+ATTN_SHARE = 1e-2
+
+
+def step_share(got, ref) -> float:
+    """The share of elements of got that differ from ref by more than one
+    bf16 step (2^(floor(log2 |ref|) - 7)) at ref's magnitude."""
+    ref = ref.float()
+    step = torch.exp2(torch.floor(torch.log2(
+        ref.abs().clamp_min(2.0 ** -126))) - 7)
+    return float(((got.float() - ref).abs() > step).float().mean())
+
+
+def flash_attention_rounded_once(q, k, v):
+    """B1's plain version with its f32 weights rounded once to bf16 before
+    p . v: another function, which B1's share limit must refuse."""
+    s = torch.matmul(q.float() * q.shape[-1] ** -0.5,
+                     k.float().transpose(-1, -2))
+    p = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def windowed_attention_rounded_early(q, k, v):
+    """B2's plain version with exp(s - m) rounded to bf16 before it is
+    normalized (p . v divided by the sum at the end): another function,
+    which B2's and B11's share limit must refuse."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+        q.shape[-1] ** -0.5)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return (torch.matmul(e.to(torch.bfloat16).float(), v.float())
+            / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def _shares(name, got, ref, wrong):
+    """The kernel's step share and the wrong function's, bf16 only; raises
+    unless the limit passes the kernel and refuses the wrong function."""
+    share, wrong_share = step_share(got, ref), step_share(wrong, ref)
+    if share > ATTN_SHARE or wrong_share <= ATTN_SHARE:
+        raise AssertionError(f"{name}: {share} of the outputs differ from "
+                             f"the plain version by more than a bf16 step, "
+                             f"{wrong_share} of the wrong function's; the "
+                             f"limit is {ATTN_SHARE}")
+    return dict(step_share=share, wrong_step_share=wrong_share)
+
+
 def check_b1(dev, dtype, peaks, tol):
     from ovo_tpu_torch.ops.attention import (flash_attention,
                                              flash_attention_plain)
@@ -429,15 +517,17 @@ def check_b1(dev, dtype, peaks, tol):
     heads, L, hd = 8, 4096, 72          # Hiera-L global blocks at 1024^2
     gen = torch.Generator(device=dev).manual_seed(1)
     qkv, (q, k, v) = _heads_of_packed(gen, 1, L, heads, hd, dev, dtype)
-    err = _max_err(flash_attention(q, k, v), flash_attention_plain(q, k, v),
-                   "B1")
+    got, ref = flash_attention(q, k, v), flash_attention_plain(q, k, v)
+    err = _max_err(got, ref, "B1")
+    shares = {} if dtype != torch.bfloat16 else _shares(
+        "B1", got, ref, flash_attention_rounded_once(q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return _report("flash_attention", dtype, err, tol,
                    lambda: flash_attention(q, k, v),
                    lambda: flash_attention_plain(q, k, v),
                    lambda: sdpa(q, k, v), storage_bytes(qkv) + q.numel()
                    * q.element_size(), 4.0 * heads * L * L * hd, peaks,
-                   shape=[1, heads, L, hd])
+                   shape=[1, heads, L, hd], **shares)
 
 
 # B2 at the main paths' shapes, (windows, heads, lq, lk, hd): the AMG
@@ -455,8 +545,11 @@ def check_b2(dev, dtype, peaks, tol, which):
     gen = torch.Generator(device=dev).manual_seed(2)
     qkv, (q, k, v) = _heads_of_packed(gen, n, lk, heads, hd, dev, dtype)
     q = q[:, :, :lq]
-    err = _max_err(windowed_fused_attention(q, k, v),
-                   windowed_attention_plain(q, k, v), "B2")
+    got = windowed_fused_attention(q, k, v)
+    ref = windowed_attention_plain(q, k, v)
+    err = _max_err(got, ref, "B2")
+    shares = {} if dtype != torch.bfloat16 else _shares(
+        "B2", got, ref, windowed_attention_rounded_early(q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return _report("windowed_attention", dtype, err, tol,
                    lambda: windowed_fused_attention(q, k, v),
@@ -464,7 +557,7 @@ def check_b2(dev, dtype, peaks, tol, which):
                    lambda: sdpa(q, k, v),
                    storage_bytes(qkv) + q.numel() * q.element_size(),
                    4.0 * n * heads * lq * lk * hd, peaks, case=which,
-                   shape=[n * heads, lq, lk, hd])
+                   shape=[n * heads, lq, lk, hd], **shares)
 
 
 def _cross_inputs(dev, dtype, Bk, B=256, T=8, L=4096, D=128, dk=256):
@@ -836,11 +929,15 @@ def check_b11(dev, dtype, peaks, tol, which):
     # as the trunk hands them over: column slices of one qkv projection
     qkv = torch.randn((n, L, 3, dout), generator=gen, device=dev).to(dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    err = _max_err(packed_heads_attention(q, k, v, heads=heads),
-                   packed_heads_attention_plain(q, k, v, heads=heads), "B11")
+    got = packed_heads_attention(q, k, v, heads=heads)
+    ref = packed_heads_attention_plain(q, k, v, heads=heads)
+    err = _max_err(got, ref, "B11")
     # the yardsticks: B2 on the head views, SDPA on the transposed heads
     qh, kh, vh = (t.reshape(n, L, heads, hd).transpose(1, 2)
                   for t in (q, k, v))
+    shares = {} if dtype != torch.bfloat16 else _shares(
+        "B11", got, ref, windowed_attention_rounded_early(qh, kh, vh)
+        .transpose(1, 2).reshape(n, L, dout))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     r = _report("packed_heads_attention", dtype, err, tol,
                 lambda: packed_heads_attention(q, k, v, heads=heads),
@@ -848,7 +945,7 @@ def check_b11(dev, dtype, peaks, tol, which):
                 lambda: sdpa(qh, kh, vh),
                 storage_bytes(qkv) + q.numel() * q.element_size(),
                 4.0 * n * heads * L * L * hd, peaks, case=which,
-                shape=[n, L, L, dout, heads])
+                shape=[n, L, L, dout, heads], **shares)
     r["b2_ms"] = time_ms(lambda: windowed_fused_attention(qh, kh, vh))
     return r
 
@@ -2199,6 +2296,42 @@ def run_cli(dev, frames: int = 40) -> dict:
     return record
 
 
+def run_kernel_device(dev) -> dict:
+    """B1, B2 and B11 in bf16 at the kernel phase's shapes: the card's
+    kernel time per call beside SDPA's on the same operands (device_ms)."""
+    from ovo_tpu_torch.ops.attention import (flash_attention,
+                                             packed_heads_attention,
+                                             windowed_fused_attention)
+
+    bf, sdpa = torch.bfloat16, torch.nn.functional.scaled_dot_product_attention
+    calls = {}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    _, (q, k, v) = _heads_of_packed(gen, 1, 4096, 8, 72, dev, bf)
+    calls["flash_attention"] = (lambda q=q, k=k, v=v: flash_attention(q, k, v),
+                                lambda q=q, k=k, v=v: sdpa(q, k, v))
+    for which, (n, heads, lq, lk, hd) in B2_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(2)
+        _, (q, k, v) = _heads_of_packed(gen, n, lk, heads, hd, dev, bf)
+        q = q[:, :, :lq]
+        calls[f"windowed_attention_{which}"] = (
+            lambda q=q, k=k, v=v: windowed_fused_attention(q, k, v),
+            lambda q=q, k=k, v=v: sdpa(q, k, v))
+    for which, (n, L, heads, hd) in B11_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(11)
+        qkv = torch.randn((n, L, 3, heads * hd), generator=gen,
+                          device=dev).to(bf)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        qh, kh, vh = (t.reshape(n, L, heads, hd).transpose(1, 2)
+                      for t in (q, k, v))
+        calls[f"packed_heads_attention_{which}"] = (
+            lambda q=q, k=k, v=v, h=heads: packed_heads_attention(
+                q, k, v, heads=h),
+            lambda q=qh, k=kh, v=vh: sdpa(q, k, v))
+    return {tag: dict(kernel_device_ms=device_ms(kernel),
+                      sdpa_device_ms=device_ms(library))
+            for tag, (kernel, library) in calls.items()}
+
+
 def _profiler():
     # device activity only: tracing every host op as well slows the
     # host-bound loop several times over, and the busy share would be read
@@ -2384,6 +2517,7 @@ def main(argv) -> int:
     emit("reference_cli", **run_reference_cli(dev))
     cli = run_cli(dev)
     emit("cli", **cli)
+    emit("kernel_device", **run_kernel_device(dev))
     launches = dict(amg["launches"],
                     fused_attention=crop["launches"]["fused_attention"],
                     fused_attn_block=cli["launches"]["fused_attn_block"],

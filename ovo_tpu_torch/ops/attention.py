@@ -322,12 +322,6 @@ def windowed_fused_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"windowed_fused_attention takes Lq, Lk <= "
                          f"{WINDOWED_MAX_LEN} and D in {WINDOWED_HEAD_DIMS}; "
                          f"got Lq={Lq}, Lk={Lk}, D={D}")
-    for t in (q, k, v):
-        if (any(st % 4 for st in t.stride()[:3])
-                or t.data_ptr() % (4 * t.element_size())):
-            raise ValueError(f"windowed_fused_attention reads four elements "
-                             f"at a time: strides {t.stride()} and the data "
-                             f"pointer must be multiples of 4 elements")
     return _launch_self("windowed_attention", "ovo_windowed_attention", q, k,
                         v, kv, scale)
 
@@ -437,12 +431,9 @@ def packed_heads_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{WINDOWED_HEAD_DIMS}; got Lq={Lq}, Lk={Lk}, "
                          f"hd={hd}")
     for n, t in (("q", q), ("k", k), ("v", v)):
-        if (t.stride(2) != 1 or t.stride(0) % 4 or t.stride(1) % 4
-                or t.data_ptr() % (4 * t.element_size())):
+        if t.stride(2) != 1:
             raise ValueError(f"packed_heads_attention: {n} needs a contiguous "
-                             f"last dim, batch and row strides in multiples "
-                             f"of 4 and a 4-element aligned pointer; got "
-                             f"strides {t.stride()}")
+                             f"last dim, got strides {t.stride()}")
     out = torch.empty((B, Lq, dout), dtype=dtype, device=dev)
     fn = cuda_build.library(
         "packed_heads_attention").ovo_packed_heads_attention

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ATTN_SHARE, step_share
 from ovo_tpu_torch.models.layers import rope2d_freqs
 from ovo_tpu_torch.ops.attention import (rope_packed_attention,
                                          rope_packed_attention_plain)
@@ -97,6 +98,9 @@ def test_masked_pool_kernel_matches_plain(cuda_device, dtype, tol):
 # is 2^-6, after two more roundings (attn, y): 6e-2. B3 keeps p in f32 where
 # the plain version rounds it (the reference's order), and its output adds a
 # N(0,1) bias, |out| < ~4: 3e-2. The limits are those of chip_smoke.py.
+# B1, B2 and B11 in bf16 also hold chip_smoke.ATTN_SHARE: the share of
+# outputs off by more than one bf16 step, which the max-abs limit cannot
+# bound (B1 with its weights rounded once stays under 1e-2).
 # ---------------------------------------------------------------------------
 
 from ovo_tpu_torch.ops import attention as A  # noqa: E402
@@ -118,19 +122,52 @@ def _mismatch_share(got, ref, atol=2 ** -10):
     return ((got.float() - ref.float()).abs() > atol).float().mean().item()
 
 
+def _unaligned(t):
+    """t's values in a view whose data pointer sits one element past a
+    16-byte boundary and whose row stride is odd: the kernels must take it
+    with their narrowest loads."""
+    *lead, rows, cols = t.shape
+    base = t.new_zeros((*lead, rows, cols + 3))
+    view = base[..., 1:1 + cols]
+    view.copy_(t)
+    return view
+
+
+def _shares_ok(got, ref, dtype):
+    """bf16: at most ATTN_SHARE of the outputs off by more than a step (the
+    limit chip_smoke.py holds B1, B2 and B11 to)."""
+    return dtype != torch.bfloat16 or step_share(got, ref) <= ATTN_SHARE
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, tol):
     rng = np.random.default_rng(21)
-    for hd, L in ((72, 300), (32, 129)):
+    # 64-key tiles: L 4096 and a non-multiple (300); head sizes padded to
+    # 16 in shared memory (72, 40), exact (64, 128), odd or a multiple of 4
+    # only (33, 20: narrower loads); kv_len masking part of a tile, and
+    # part of a tile plus a whole one
+    for hd, L in ((72, 4096), (72, 300), (64, 300), (40, 300), (128, 300),
+                  (33, 129), (20, 129)):
         # head-split views of a packed (B, L, 3, H, hd) projection
         qkv = _dev(rng.standard_normal((2, L, 3, 3, hd)), cuda_device, dtype)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        for kv_len in (None, L - 50):
+        # ... a whole number of tiles, and a single key
+        for kv_len in (None, L - 50, L - 90, (L - 1) // 64 * 64, 1):
             got = A.flash_attention(q, k, v, kv_len=kv_len)
             ref = A.flash_attention_plain(q, k, v, kv_len=kv_len)
             assert _err(got, ref) <= tol
+            assert _shares_ok(got, ref, dtype)
+        # fewer queries than keys
+        got = A.flash_attention(q[:, :, :L // 3], k, v, kv_len=L - 50)
+        ref = A.flash_attention_plain(q[:, :, :L // 3], k, v, kv_len=L - 50)
+        assert _err(got, ref) <= tol
+    # a view that is not 16-byte aligned takes the narrow loads
+    qu, ku, vu = (_unaligned(t) for t in (q, k, v))
+    got = A.flash_attention(qu, ku, vu, kv_len=L - 50)
+    ref = A.flash_attention_plain(q, k, v, kv_len=L - 50)
+    assert _err(got, ref) <= tol
 
 
 @pytest.mark.cuda
@@ -138,21 +175,32 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, tol):
                                        (torch.bfloat16, 1e-2)])
 def test_windowed_kernel_matches_plain(cuda_device, dtype, tol):
     rng = np.random.default_rng(22)
-    for B, H, lq, lk, hd in ((20, 3, 16, 64, 72), (2, 4, 196, 196, 72),
-                             (50, 2, 4, 16, 72), (64, 8, 8, 8, 32),
-                             (3, 2, 49, 196, 72)):
+    cases = [(20, 3, 16, 64, 72), (2, 4, 196, 196, 72), (50, 2, 4, 16, 72),
+             (64, 8, 8, 8, 32), (3, 2, 49, 196, 72)]
+    # every head size at the trunk's, decoder's and text tower's lengths, q
+    # shorter than k, up to 512 keys
+    for hd in A.WINDOWED_HEAD_DIMS:
+        for lq, lk in ((4, 16), (8, 8), (16, 64), (49, 196), (64, 64),
+                       (196, 196), (64, 512)):
+            cases.append((3, 2, lq, lk, hd))
+    for B, H, lq, lk, hd in cases:
         q = _dev(rng.standard_normal((B, lq, H, hd)), cuda_device,
                  dtype).transpose(1, 2)
         k, v = (_dev(rng.standard_normal((B, H, lk, hd)), cuda_device, dtype)
                 for _ in range(2))
         q[1], k[1] = 0, 0                    # a padded instance
-        for kv_len in (None, lk - 3):
+        for kv_len in (None, 1, lk - 3):
             got = A.windowed_fused_attention(q, k, v, kv_len=kv_len)
             ref = A.windowed_attention_plain(q, k, v, kv_len=kv_len)
             assert _err(got, ref) <= tol
+            assert _shares_ok(got, ref, dtype)
         # the padded instance: the mean of v over the kv_len - 3 keys
         mean = v[1, :, :lk - 3].float().mean(dim=1, keepdim=True)
         assert (got[1].float() - mean).abs().max().item() <= tol
+    # a view that is not 16-byte aligned takes the narrow loads
+    qu, ku, vu = (_unaligned(t) for t in (q, k, v))
+    got = A.windowed_fused_attention(qu, ku, vu)
+    assert _err(got, A.windowed_attention_plain(q, k, v)) <= tol
 
 
 def _cross_args(rng, dev, dtype, B, Bk, T, L, heads=8, D=128, dk=256):
@@ -446,6 +494,12 @@ def test_packed_heads_kernel_matches_plain(cuda_device, dtype, tol):
         ref = A.packed_heads_attention_plain(q, k, v, heads=heads)
         assert got.shape == (B, lq, dout)
         assert _err(got, ref) <= tol
+        assert _shares_ok(got, ref, dtype)
+    # rows that are not 16-byte aligned take the narrow loads
+    qu, ku, vu = (_unaligned(t) for t in (q, k, v))
+    got = A.packed_heads_attention(qu, ku, vu, heads=heads)
+    assert _err(got, A.packed_heads_attention_plain(q, k, v,
+                                                    heads=heads)) <= tol
 
 
 @pytest.mark.cuda
