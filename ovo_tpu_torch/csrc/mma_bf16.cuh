@@ -1,5 +1,6 @@
 // Tensor-core building blocks shared by the bf16 attention kernels B1
-// (flash_attention.cu) and B2 / B11 (window_attention.cuh): the sm_80+
+// (flash_attention.cu), B2 / B11 (window_attention.cuh), B3 (cross_t2i.cu)
+// and B4 (cross_i2t_tail.cu): the sm_80+
 // warp-level mma.sync m16n8k16 bf16 product with f32 accumulation,
 // ldmatrix fragment loads from shared memory, and cp.async copies from
 // device memory into shared memory with zero fill.
@@ -64,6 +65,20 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
       : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p))
       : "memory");
+}
+
+// two bf16 values -> one register (lo in the low half)
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
+                                          __nv_bfloat16 hi) {
+  const __nv_bfloat162 h = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// e / l, given rl = 1 / l: the product and one Newton step, which rounds
+// like the division (e in [0, 1], l >= 1) without its slow-path branch
+__device__ __forceinline__ float div_by_sum(float e, float l, float rl) {
+  const float q0 = e * rl;
+  return fmaf(fmaf(-q0, l, e), rl, q0);
 }
 
 // two floats -> one register of two bf16 (round to nearest even)

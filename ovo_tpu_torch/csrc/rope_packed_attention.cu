@@ -10,24 +10,33 @@
 //             the dtype in the op order of layers.apply_rope
 //             (x1*c - x2*s, x1*s + x2*c);
 //   s       = (q . k) * scale in f32, keys >= kv_len set to -1e30;
-//   out     = softmax(s) . v with an f32 running max / sum / accumulator,
-//             written to out (B, L, D) at columns [h*hd, (h+1)*hd).
+//   p       = exp(s - m) / l with the row's max m and sum l, rounded to the
+//             dtype (the reference's rounding point: normalized, then
+//             rounded; in f32 the rounding is the identity);
+//   out     = p . v in f32, rounded once, written to out (B, L, D) at
+//             columns [h*hd, (h+1)*hd).
 //
 // What bounds it on an H100: at the PE-Core path shape (7 views, L = 584,
 // D = 1024, 16 heads of 64, bf16) one launch needs ~9.6 GFLOP and moves
 // ~33 MB, so the tensor cores (989 TF/s) and HBM (3.35 TB/s) both bound it
-// at ~10 us. This first version does its products with f32 FMAs on the CUDA
+// at ~10 us. This version does its products with f32 FMAs on the CUDA
 // cores (67 TF/s peak, fed from shared memory), so it is bound by FMA issue
-// and shared-memory bandwidth, far above that floor; wgmma/TMA is later work.
+// and shared-memory bandwidth, far above that floor; the tensor cores are
+// later work. The first design (one online-softmax pass that divided by the
+// sum at the end, 0.626 ms at that shape) computed another function in bf16:
+// its weights never rounded.
 //
 // Design: one block of 256 threads per (view*head, 64-query tile). The q tile
-// is rotated once into shared memory (f32, padded rows: no bank conflicts);
-// 64-key tiles of k (rotated on load) and v stream through shared memory with
-// an online softmax. Each thread owns a 4x4 micro-tile of the 64x64 score
-// tile (rows 4*(tid/16)+i, keys tid%16 + 16*j) and 4 rows x hd/16 columns of
-// the output; row max and sum reduce over the 16 lanes of a half-warp with
-// shuffles. Tiles wholly beyond kv_len are skipped: their keys would get
-// exp(-1e30 - m) = 0 exactly. kv_len >= 1 keeps every row's max finite.
+// is rotated once into shared memory (f32, padded rows: no bank conflicts).
+// 64-key tiles stream through shared memory twice: pass 1 recomputes the
+// scores of each tile and keeps only each row's running max and sum; pass 2
+// recomputes them again, forms the normalized, rounded weights and
+// accumulates p . v (B2's two-pass structure, kept here on FMAs). Each thread
+// owns a 4x4 micro-tile of the 64x64 score tile (rows 4*(tid/16)+i, keys
+// tid%16 + 16*j) and 4 rows x hd/16 columns of the output; row max and sum
+// reduce over the 16 lanes of a half-warp with shuffles. Tiles wholly beyond
+// kv_len are skipped in both passes: their keys would get exp(-1e30 - m) = 0
+// exactly. kv_len >= 1 keeps every row's max finite.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -113,31 +122,23 @@ rope_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
     q_s[r * LD + d] = val;
   }
 
-  float m_i[4], l_i[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < kv_len; k0 += BK) {
-    __syncthreads();  // previous tile fully consumed (and q tile written)
+  // k (rotated) and, in pass 2, v of one 64-key tile -> shared memory
+  auto load_tile = [&](int k0, bool with_v) {
     for (int i = tid; i < BK * HD; i += THREADS) {
       const int r = i / HD, d = i % HD, t = k0 + r;
       float kv = 0.f, vv = 0.f;
       if (t < L) {
         kv = rope_elem<T>(base + t * rs + kc, d, H2, cos_t + (size_t)t * H2,
                           sin_t + (size_t)t * H2);
-        vv = to_f<T>(base[t * rs + vc + d]);
+        if (with_v) vv = to_f<T>(base[t * rs + vc + d]);
       }
       k_s[r * LD + d] = kv;
-      v_s[r * HD + d] = vv;
+      if (with_v) v_s[r * HD + d] = vv;
     }
-    __syncthreads();
-
-    float s[4][4];
+  };
+  // this thread's 4 x 4 scores of the tile, times scale; keys >= kv_len at
+  // -1e30
+  auto tile_scores = [&](float (&s)[4][4], int k0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -154,35 +155,62 @@ rope_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
     }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s[i][j] = k0 + cl + 16 * j < kv_len ? s[i][j] * scale : -1e30f;
+  };
 
+  // pass 1: each row's max and sum of exp over the keys < kv_len
+  float m_i[4], l_i[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_i[i] = -INFINITY;
+    l_i[i] = 0.f;
+  }
+  for (int k0 = 0; k0 < kv_len; k0 += BK) {
+    __syncthreads();  // previous tile fully consumed (and q tile written)
+    load_tile(k0, false);
+    __syncthreads();
+    float s[4][4];
+    tile_scores(s, k0);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float mx = m_i[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + cl + 16 * j;
-        s[i][j] = key < kv_len ? s[i][j] * scale : -1e30f;
-        mx = fmaxf(mx, s[i][j]);
-      }
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float alpha = expf(m_i[i] - mx);
+      mx = fmaxf(m_i[i], mx);
       float rsum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - mx);
-        rsum += p;
-        p_s[(4 * rg + i) * LDP + cl + 16 * j] = p;
-      }
+      for (int j = 0; j < 4; ++j) rsum += expf(s[i][j] - mx);
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l_i[i] = l_i[i] * alpha + rsum;
+      l_i[i] = l_i[i] * expf(m_i[i] - mx) + rsum;
       m_i[i] = mx;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
     }
+  }
+
+  // pass 2: the normalized weights, rounded to the dtype, times v
+  float acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  for (int k0 = 0; k0 < kv_len; k0 += BK) {
+    __syncthreads();  // previous tile fully consumed
+    load_tile(k0, true);
+    __syncthreads();
+    float s[4][4];
+    tile_scores(s, k0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        p_s[(4 * rg + i) * LDP + cl + 16 * j] =
+            rnd<T>(expf(s[i][j] - m_i[i]) / l_i[i]);
     __syncthreads();
 
 #pragma unroll 4
@@ -203,10 +231,9 @@ rope_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * rg + i;
     if (row >= L) continue;
-    const float inv = 1.f / l_i[i];
     T* o = out + ((size_t)b * L + row) * D + h * HD;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) o[cl + 16 * c] = from_f<T>(acc[i][c] * inv);
+    for (int c = 0; c < NC; ++c) o[cl + 16 * c] = from_f<T>(acc[i][c]);
   }
 }
 

@@ -29,13 +29,6 @@ constexpr int W_THREADS = 32 * W_WARPS;
 // registers are capped at 128 a thread for four
 constexpr int W_SMEM_MAX = 113 * 1024;
 
-// e / l, given rl = 1 / l: the product and one Newton step, which rounds
-// like the division (e in [0, 1], l >= 1) without its slow-path branch
-__device__ __forceinline__ float div_by_sum(float e, float l, float rl) {
-  const float q0 = e * rl;
-  return fmaf(fmaf(-q0, l, e), rl, q0);
-}
-
 // scores of the warp's 16 query rows against the nj * 8 keys of a chunk
 // (k rows in shared memory, stride LDS), times scale; keys at or past
 // kv_len at -1e30

@@ -459,6 +459,9 @@ def packed_heads_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 CROSS_MAX_ROWS = 64      # heads * tokens
 CROSS_MAX_TOKENS = 16    # B4's tokens per head
 CROSS_MAX_DK = 256
+# D at most in bf16 (the tensor-core kernels' shared-memory tiles): B3, B4
+T2I_MAX_D_BF16 = 256
+I2T_TAIL_MAX_D_BF16 = 128
 
 
 def _heads_w(w: torch.Tensor, heads: int) -> torch.Tensor:
@@ -490,6 +493,12 @@ def cross_t2i_from_keys_plain(q_proj: torch.Tensor, keys: torch.Tensor,
     o = torch.einsum("bhtc,chj->bthj", pk, _heads_w(wv.to(dt), heads))
     o = o + bv.float().reshape(heads, dh)
     return o.reshape(o.shape[0], T, D).to(q_proj.dtype)
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it in a fresh (16-byte aligned) allocation when its
+    data pointer is not: for the kernels' 16-byte loads."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _batch_stride(t: torch.Tensor) -> int:
@@ -537,9 +546,12 @@ def cross_t2i_from_keys(q_proj: torch.Tensor, keys: torch.Tensor,
         raise ValueError(f"cross_t2i takes heads*T <= {CROSS_MAX_ROWS}, "
                          f"dk % 16 == 0, dk <= {CROSS_MAX_DK}; got heads="
                          f"{heads}, T={T}, dk={dk}")
+    if dt == torch.bfloat16 and D > T2I_MAX_D_BF16:
+        raise ValueError(f"cross_t2i takes D <= {T2I_MAX_D_BF16} in bf16, "
+                         f"got {D}")
     _check_cross_batches("cross_t2i", B, q_proj, keys)
-    if keys.data_ptr() % 16:
-        raise ValueError("cross_t2i: keys must be 16-byte aligned")
+    if dt == torch.float32:
+        keys = _aligned16(keys)  # the f32 kernel reads keys 16 bytes a load
     wk, wv = wk.to(dt).contiguous(), wv.to(dt).contiguous()
     pe = pe_k.to(dt).reshape(L, D).contiguous()
     bvf = bv.float().contiguous()
@@ -650,10 +662,8 @@ def _i2t_kernel_operands(name, keys, wq, pe_q, kk_tok, vv_tok, heads):
     _check_cross_batches(name, B, keys, kk_tok, vv_tok)
     if _batch_stride(kk_tok) != _batch_stride(vv_tok):
         raise ValueError(f"{name}: kk_tok and vv_tok need one batch stride")
-    if keys.data_ptr() % 16:
-        raise ValueError(f"{name}: keys must be 16-byte aligned")
     wq = wq.to(dt).contiguous()
-    pe = pe_q.to(dt).reshape(L, D).contiguous()
+    pe = _aligned16(pe_q.to(dt).reshape(L, D).contiguous())
     if wq.device != dev or pe.device != dev:
         raise ValueError(f"{name}: weights must be on {dev}")
     kq = torch.empty((B if kk_tok.shape[0] > 1 else 1, heads * T, dk),
@@ -690,6 +700,11 @@ def cross_i2t_tail_from_keys(keys: torch.Tensor, wq: torch.Tensor,
             heads, eps=eps, t_len=t_len)
     B, dev, dt, wq, pe, kq = _i2t_kernel_operands(
         "cross_i2t_tail", keys, wq, pe_q, kk_tok, vv_tok, heads)
+    if dt == torch.bfloat16 and D > I2T_TAIL_MAX_D_BF16:
+        raise ValueError(f"cross_i2t_tail takes D <= {I2T_TAIL_MAX_D_BF16} "
+                         f"in bf16, got {D}")
+    if dt == torch.float32:
+        keys = _aligned16(keys)  # the f32 kernel reads keys 16 bytes a load
     wout = wout.to(dt).contiguous()
     bo, g, bb = (t.float().contiguous() for t in (bout, ln_scale, ln_bias))
     for t in (wout, bo, g, bb):
@@ -736,6 +751,8 @@ def cross_i2t_from_keys(keys: torch.Tensor, wq: torch.Tensor,
         raise ValueError(f"cross_i2t_proj takes D <= {CROSS_MAX_DK}, got {D}")
     B, dev, dt, wq, pe, kq = _i2t_kernel_operands(
         "cross_i2t_proj", keys, wq, pe_q, kk_tok, vv_tok, heads)
+    if keys.data_ptr() % 16:
+        raise ValueError("cross_i2t_proj: keys must be 16-byte aligned")
     L, dk = keys.shape[1], keys.shape[2]
     out = torch.empty((B, L, D), dtype=dt, device=dev)
     fn = cuda_build.library("cross_i2t_proj").ovo_cross_i2t_proj

@@ -1,15 +1,18 @@
 """The share statistic that chip_smoke.py and the card tests hold kernels
-B1 (flash_attention), B2 (windowed_fused_attention) and B11
-(packed_heads_attention) to in bf16, beside their 1e-2 max-abs limit: the
-share of outputs that differ from the plain version by more than one bf16
-step at the plain output's magnitude, at most ``ATTN_SHARE``.
+B1 (flash_attention), B2 (windowed_fused_attention), B11
+(packed_heads_attention), B3 (cross_t2i), B4 (cross_i2t_tail) and B5
+(rope_packed_attention) to in bf16, beside their max-abs limits: the share
+of outputs that differ from the plain version by more than one bf16 step
+at the plain output's magnitude, at most ``ATTN_SHARE`` (``B3_SHARE`` for
+B3, whose output dilutes a weight's rounding over dk products).
 
 On the CPU, at the main paths' head sizes and key counts: a reordered f32
-sum of the right function (keys permuted), and B1's p_hi + p_lo split of
-its f32 weights (the kernel's p . v), stay under the limit; the functions
-the kernels must not compute break it. Those are B1 with its weights
-rounded once to bf16 (which the max-abs limit alone passes), and B2 / B11
-with exp(s - m) rounded before it is normalized.
+sum of the right function (keys, or B4's tokens, permuted), and B1's p_hi
++ p_lo split of its f32 weights (the kernel's p . v), stay under the limit;
+the functions the kernels must not compute break it. Those are B1 with its
+weights rounded once to bf16 (which the max-abs limit alone passes), B2 /
+B11 with exp(s - m) rounded before it is normalized, B3 and B5 with their
+normalized weights left unrounded, and B4 with attn left unrounded.
 """
 import numpy as np
 import pytest
@@ -101,3 +104,86 @@ def test_step_share_counts_steps_at_each_magnitude():
     ref = torch.tensor([1.0, 2.0 ** -10, 0.0, -3.0])
     got = ref + torch.tensor([2.0 ** -7, 2 * 2.0 ** -17, 0.0, -2.0 ** -6])
     assert chip_smoke.step_share(got, ref) == 0.25
+
+
+def _f32(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,Bk", [(8, 8), (16, 1)])
+def test_cross_t2i_share_tells_unrounded_weights_apart(B, Bk):
+    """B3 at the AMG's widths (8 heads x 8 tokens, D 128, dk 256) over 1024
+    keys, per-prompt and shared keys."""
+    heads, T, L, D, dk = 8, 8, 1024, 128, 256
+    rng = np.random.default_rng(30 + Bk)
+    q, keys = _bf16(rng, B, T, D), _bf16(rng, Bk, L, dk)
+    wk = (_f32(rng, dk, D) * dk ** -0.5).to(BF)
+    wv = (_f32(rng, dk, D) * dk ** -0.5).to(BF)
+    pe, bv = _bf16(rng, 1, L, D), _f32(rng, D)
+    args = (q, keys, wk, wv, pe, bv, heads)
+    ref = A.cross_t2i_from_keys_plain(*args)
+    perm = torch.from_numpy(rng.permutation(L))
+    reordered = A.cross_t2i_from_keys_plain(q, keys[:, perm], wk, wv,
+                                            pe[:, perm], bv, heads)
+    share = chip_smoke.step_share
+    assert share(reordered, ref) <= chip_smoke.B3_SHARE
+    wrong = chip_smoke.cross_t2i_unrounded_weights(*args)
+    # B3's max-abs limit (3e-2) alone passes the unrounded weights
+    assert float((wrong.float() - ref.float()).abs().max()) <= 3e-2
+    assert share(wrong, ref) > chip_smoke.B3_SHARE
+
+
+@pytest.mark.parametrize("B,Bk", [(4, 4), (8, 1)])
+def test_cross_i2t_tail_share_tells_unrounded_attn_apart(B, Bk):
+    """B4 at the AMG's widths over 512 image rows: tokens permuted (with
+    their k and v rows) reorder the per-head softmax and p . v sums."""
+    heads, T, L, D, dk = 8, 8, 512, 128, 256
+    rng = np.random.default_rng(40 + Bk)
+    keys = _bf16(rng, Bk, L, dk)
+    wq = (_f32(rng, dk, D) * dk ** -0.5).to(BF)
+    pe, kt, vt = _bf16(rng, 1, L, D), _bf16(rng, B, T, D), _bf16(rng, B, T, D)
+    wout = (_f32(rng, D, dk) * D ** -0.5).to(BF)
+    bout, g, b = _f32(rng, dk), _f32(rng, dk) * 0.1 + 1.0, _f32(rng, dk)
+    args = (keys, wq, pe, kt, vt, wout, bout, g, b, heads)
+    ref = A.cross_i2t_tail_from_keys_plain(*args)
+    perm = torch.from_numpy(rng.permutation(T))
+    reordered = A.cross_i2t_tail_from_keys_plain(
+        keys, wq, pe, kt[:, perm], vt[:, perm], wout, bout, g, b, heads)
+    share = chip_smoke.step_share
+    assert share(reordered, ref) <= chip_smoke.ATTN_SHARE
+    wrong = chip_smoke.cross_i2t_tail_unrounded_attn(*args)
+    assert share(wrong, ref) > chip_smoke.ATTN_SHARE
+
+
+@pytest.mark.parametrize("B,heads,L,kv_len", [(2, 4, 584, 577),
+                                              (2, 16, 300, 290)])
+def test_rope_packed_share_tells_unrounded_weights_apart(B, heads, L, kv_len):
+    """B5 at PE-Core's head size (64) and token count (577 of 584), and at
+    more heads over fewer keys."""
+    from ovo_tpu_torch.models.layers import rope2d_freqs
+
+    hd = 64
+    D = heads * hd
+    rng = np.random.default_rng(50 + heads)
+    qkv = _bf16(rng, B, L, 3 * D)
+    cos, sin = rope2d_freqs(24, 24, hd, n_prefix=1)
+    pad = cos.new_zeros((max(0, L - cos.shape[0]), hd // 2))
+    cos, sin = torch.cat([cos, pad])[:L], torch.cat([sin, pad])[:L]
+    ref = A.rope_packed_attention_plain(qkv, cos, sin, heads=heads,
+                                        kv_len=kv_len)
+    q, k, v = (t.reshape(B, L, heads, hd).transpose(1, 2)
+               for t in qkv.split(D, dim=-1))
+    q, k = A.apply_rope(q, cos, sin), A.apply_rope(k, cos, sin)
+    perm = torch.from_numpy(rng.permutation(L))
+    keep = (perm < kv_len)[None, None, None, :]
+    reordered = A.xla_attention(q, _permuted(k, perm), _permuted(v, perm),
+                                mask=keep, scale=hd ** -0.5)
+    reordered = reordered.transpose(1, 2).reshape(B, L, D)
+    share = chip_smoke.step_share
+    assert share(reordered, ref) <= chip_smoke.ATTN_SHARE
+    wrong = chip_smoke.rope_packed_unrounded_weights(qkv, cos, sin,
+                                                     heads=heads,
+                                                     kv_len=kv_len)
+    # B5's max-abs limit (1e-2) alone passes the unrounded weights
+    assert float((wrong.float() - ref.float()).abs().max()) <= 1e-2
+    assert share(wrong, ref) > chip_smoke.ATTN_SHARE

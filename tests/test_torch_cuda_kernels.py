@@ -11,20 +11,22 @@ neither jax nor the JAX package, so it also runs on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: 1e-4 abs in f32 (the online softmax reorders the sums). In
-bf16 on N(0,1) inputs the kernel keeps the softmax weights in f32 but the
-plain version rounds them to bf16 before p.v, as the reference does (2^-9
-relative per weight), and both round the output to bf16. The outputs are
-softmax means of N(0,1) values: below 1 in magnitude for B5 here (over
-100-145 keys), where one bf16 step is at most 2^-8, and below 0.25 for B6
-(over ~400 keys), where it is at most 2^-10. The limits are those of
-chip_smoke.py: 1e-2 (B5) and 4e-3 (B6).
+Tolerances: 1e-4 abs in f32 (the kernels reorder the sums). In bf16 on
+N(0,1) inputs B5 and its plain version both round the normalized softmax
+weights to bf16 before p.v, as the reference does, so a weight on a
+rounding edge may flip (2^-9 relative); B6's kernel keeps them in f32
+where the plain version rounds them; both round the output to bf16. The
+outputs are softmax means of N(0,1) values: below 1 in magnitude for B5
+here (over 100-145 keys), where one bf16 step is at most 2^-8, and below
+0.25 for B6 (over ~400 keys), where it is at most 2^-10. The limits are
+those of chip_smoke.py: 1e-2 (B5) and 4e-3 (B6); B5 in bf16 also holds
+chip_smoke.ATTN_SHARE (below).
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ATTN_SHARE, step_share
+from chip_smoke import ATTN_SHARE, B3_SHARE, step_share
 from ovo_tpu_torch.models.layers import rope2d_freqs
 from ovo_tpu_torch.ops.attention import (rope_packed_attention,
                                          rope_packed_attention_plain)
@@ -71,6 +73,8 @@ def test_rope_packed_kernel_matches_plain(cuda_device, dtype, tol):
         ref = rope_packed_attention_plain(q, c, s, heads=4, kv_len=kv_len)
         torch.cuda.synchronize()
         assert (got.float() - ref.float()).abs().max().item() <= tol
+        # bf16: the weights round where the reference rounds them
+        assert dtype != torch.bfloat16 or step_share(got, ref) <= ATTN_SHARE
 
 
 @pytest.mark.cuda
@@ -91,16 +95,16 @@ def test_masked_pool_kernel_matches_plain(cuda_device, dtype, tol):
 # B1-B4 (the SAM2 automatic-mask path). Limits: 1e-4 abs in f32 (summation
 # order). bf16: B1 and its plain version both keep the softmax weights in
 # f32 and round once at the output, a softmax mean of N(0,1) values below 1
-# here, where one bf16 step is at most 2^-8: 1e-2. B2 and B4 round the
+# here, where one bf16 step is at most 2^-8: 1e-2. B2, B3 and B4 round the
 # normalized weights to bf16 on both sides, so a weight on a rounding edge
 # can flip one step (2^-9 relative) and move the output a step: 1e-2 for
 # B2; B4's output is a LayerNorm of order-1 values up to ~4, where one step
-# is 2^-6, after two more roundings (attn, y): 6e-2. B3 keeps p in f32 where
-# the plain version rounds it (the reference's order), and its output adds a
-# N(0,1) bias, |out| < ~4: 3e-2. The limits are those of chip_smoke.py.
-# B1, B2 and B11 in bf16 also hold chip_smoke.ATTN_SHARE: the share of
-# outputs off by more than one bf16 step, which the max-abs limit cannot
-# bound (B1 with its weights rounded once stays under 1e-2).
+# is 2^-6, after two more roundings (attn, y): 6e-2; B3's output adds a
+# N(0,1) bias, |out| < ~4, after pk is rounded: 3e-2. The limits are those
+# of chip_smoke.py. B1, B2, B4 and B11 in bf16 also hold
+# chip_smoke.ATTN_SHARE, B3 chip_smoke.B3_SHARE: the share of outputs off
+# by more than one bf16 step, which the max-abs limit cannot bound (B1 with
+# its weights rounded once, B3 with its weights unrounded, stay under it).
 # ---------------------------------------------------------------------------
 
 from ovo_tpu_torch.ops import attention as A  # noqa: E402
@@ -133,10 +137,19 @@ def _unaligned(t):
     return view
 
 
-def _shares_ok(got, ref, dtype):
-    """bf16: at most ATTN_SHARE of the outputs off by more than a step (the
-    limit chip_smoke.py holds B1, B2 and B11 to)."""
-    return dtype != torch.bfloat16 or step_share(got, ref) <= ATTN_SHARE
+def _shares_ok(got, ref, dtype, limit=ATTN_SHARE):
+    """bf16: at most ``limit`` of the outputs off by more than a step (the
+    limits chip_smoke.py holds B1-B5 and B11 to)."""
+    return dtype != torch.bfloat16 or step_share(got, ref) <= limit
+
+
+def _misaligned(t):
+    """t's values in a contiguous view whose data pointer sits one element
+    past a 16-byte boundary."""
+    base = t.new_empty(t.numel() + 1)
+    view = base[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 @pytest.mark.cuda
@@ -223,11 +236,28 @@ def _cross_args(rng, dev, dtype, B, Bk, T, L, heads=8, D=128, dk=256):
                                        (torch.bfloat16, 3e-2)])
 def test_cross_t2i_kernel_matches_plain(cuda_device, dtype, tol):
     rng = np.random.default_rng(23)
-    for Bk in (1, 5):
-        x = _cross_args(rng, cuda_device, dtype, 5, Bk, 8, 300)
-        args = (x["q"], x["keys"], x["wk"], x["wv"], x["pe"], x["bv"], 8)
+    # (prompts, keys batch, tokens, heads, L, dk, D): shared and per-prompt
+    # keys, L a whole number of 64-key chunks or not, dk 128 and 256,
+    # 64 rows of 8 x 8 or 4 x 16, 40 rows (5 tokens: a row tile straddles
+    # heads, the last one half empty), 60 rows of 12 heads of 8, and D 72
+    # (heads of 9: zero-padded to 80 columns)
+    for B, Bk, T, heads, L, dk, D in ((5, 1, 8, 8, 300, 256, 128),
+                                      (5, 5, 8, 8, 300, 256, 128),
+                                      (3, 3, 8, 8, 4096, 256, 128),
+                                      (4, 1, 16, 4, 130, 128, 128),
+                                      (4, 4, 5, 8, 100, 128, 128),
+                                      (3, 3, 5, 12, 130, 256, 96),
+                                      (3, 1, 8, 8, 70, 128, 72)):
+        x = _cross_args(rng, cuda_device, dtype, B, Bk, T, L, heads=heads,
+                        dk=dk, D=D)
+        args = (x["q"], x["keys"], x["wk"], x["wv"], x["pe"], x["bv"], heads)
         got = A.cross_t2i_from_keys(*args)
-        assert _err(got, A.cross_t2i_from_keys_plain(*args)) <= tol
+        ref = A.cross_t2i_from_keys_plain(*args)
+        assert _err(got, ref) <= tol
+        assert _shares_ok(got, ref, dtype, B3_SHARE)
+    # keys whose pointer is not 16-byte aligned are taken
+    got = A.cross_t2i_from_keys(args[0], _misaligned(args[1]), *args[2:])
+    assert _err(got, ref) <= tol
 
 
 @pytest.mark.cuda
@@ -235,17 +265,31 @@ def test_cross_t2i_kernel_matches_plain(cuda_device, dtype, tol):
                                        (torch.bfloat16, 6e-2)])
 def test_cross_i2t_tail_kernel_matches_plain(cuda_device, dtype, tol):
     rng = np.random.default_rng(24)
-    # (token batch, keys batch, tokens, t_len, rows): shared keys, per-prompt
-    # keys with masked tokens, shared tokens with fewer than 64 token rows
-    for Bt, Bk, T, t_len, L in ((3, 1, 8, None, 100), (3, 3, 8, 6, 300),
-                                (1, 3, 5, 4, 130)):
-        x = _cross_args(rng, cuda_device, dtype, Bt, Bk, T, L)
+    # (token batch, keys batch, tokens, t_len, heads, rows, dk, D): shared
+    # keys, per-prompt keys with masked tokens, shared tokens with fewer
+    # than 64 token rows, L 4096, dk 128, 16 tokens a head (two n8 tiles),
+    # 5 tokens (a head padded to 8), 2 and 3 tokens (heads sharing a quad),
+    # score columns past 64 (12 heads x 8, 5 heads x 16), D 72 (its last
+    # k16 chunk half empty)
+    for Bt, Bk, T, t_len, heads, L, dk, D in (
+            (3, 1, 8, None, 8, 100, 256, 128), (3, 3, 8, 6, 8, 300, 256, 128),
+            (1, 3, 5, 4, 8, 130, 256, 128), (2, 2, 8, None, 8, 4096, 256, 128),
+            (3, 3, 8, 7, 8, 300, 128, 128), (2, 1, 16, 11, 4, 130, 256, 128),
+            (2, 2, 5, None, 8, 64, 128, 128), (2, 2, 2, None, 8, 130, 128, 128),
+            (2, 1, 3, 2, 8, 100, 256, 128), (2, 2, 5, 4, 12, 130, 256, 96),
+            (1, 2, 9, 7, 5, 64, 128, 80), (2, 2, 8, 5, 6, 70, 256, 72)):
+        x = _cross_args(rng, cuda_device, dtype, Bt, Bk, T, L, heads=heads,
+                        dk=dk, D=D)
         vv = x["q"].flip(1).contiguous()
         args = (x["keys"], x["wk"], x["pe"], x["q"], vv, x["wout"],
-                x["bout"], x["g"], x["b"], 8)
+                x["bout"], x["g"], x["b"], heads)
         got = A.cross_i2t_tail_from_keys(*args, t_len=t_len)
         ref = A.cross_i2t_tail_from_keys_plain(*args, t_len=t_len)
         assert _err(got, ref) <= tol
+        assert _shares_ok(got, ref, dtype)
+    # keys whose pointer is not 16-byte aligned are taken
+    got = A.cross_i2t_tail_from_keys(_misaligned(args[0]), *args[1:])
+    assert _err(got, A.cross_i2t_tail_from_keys_plain(*args)) <= tol
 
 
 # ---------------------------------------------------------------------------
