@@ -16,13 +16,14 @@ non-zero and prints no result):
              and B9a / B9b at the 1280^2 decoder's shapes, shared and
              per-prompt image sides; B11 at Hiera-L's stage-1 and stage-3
              windows, B13 (bf16 only) at 128 and 256 prompts, B14 at its
-             gated shapes; B1-B5 and B11 in bf16 also within ATTN_SHARE
+             gated shapes; B1-B6 and B11 in bf16 also within ATTN_SHARE
              (B3: B3_SHARE) outputs off by more than one bf16 step, which
-             the wrong functions (B1's weights rounded once, B2's rounded
-             before normalizing, B3's and B5's left unrounded, B4's attn
-             left unrounded) must break; B3 and B4's library time is the
-             whole function in library calls (cuBLAS projections, SDPA,
-             B4's out-projection and F.layer_norm), SDPA alone beside it
+             the wrong functions (B1's and B6's weights rounded once, B2's
+             rounded before normalizing, B3's and B5's left unrounded, B4's
+             attn left unrounded) must break; B3 and B4's library time is
+             the whole function in library calls (cuBLAS projections,
+             SDPA, B4's out-projection and F.layer_norm), SDPA alone beside
+             it
   reference  the online pipeline on a small synthetic scene with the tiny-pe
              card, on the card (kernels) and on the CPU (plain versions):
              equal point map and instances, descriptors within cosine 1e-4
@@ -101,10 +102,11 @@ non-zero and prints no result):
              OVO_FUSED_BLOCK=1: per embedded keyframe 24 B12a, 24 B12b, 1
              B6 and no B5 launches, B1-B4 as in the amg_slice; no host sync
              in the frame loop; a finite mIoU / mAcc; each phase's wall
-  kernel_device  B1, B2, B11, B3 and B4 in bf16 at the kernel phase's
-             shapes: the card's kernel time per call from a torch.profiler
-             trace, beside SDPA's (B3 / B4: beside the whole function's
-             library route) (last, since a trace slows later launches)
+  kernel_device  B5, B6, B1, B2, B11, B3 and B4 in bf16 at the kernel
+             phase's shapes: the card's kernel time per call from a
+             torch.profiler trace, beside SDPA's (B3 / B4: beside the whole
+             function's library route) (last, since a trace slows later
+             launches)
   kernels    the kernels with their launch counts on the path that runs
              them: the amg_slice (B1-B6), the crop_slice (B10), the cli
              (B12a / B12b), the amg1280_slice (B9a, B9b, B8), the
@@ -285,13 +287,14 @@ def time_ms(fn, warmup: int = 5, iters: int = 30) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, by_name=None) -> float:
     """The card's kernel time per call of fn, from a torch.profiler trace
     of the card's activity (sum of its kernels' intervals over the calls):
     free of the host time between two CUDA events, which dominates calls
     below ~0.15 ms. A trace leaves host time on every later launch of the
     process, so this runs after every phase that times with CUDA events or
-    the host's clock."""
+    the host's clock. ``by_name``, a dict, receives the time per call of
+    each kernel name (the first 60 characters)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -303,9 +306,13 @@ def device_ms(fn, iters: int = 20) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type.name == "CUDA")
+        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        us = sum(e.time_range.elapsed_us() for e in events)
         if us > 0:
+            for e in events if by_name is not None else ():
+                key = e.name[:60]
+                by_name[key] = (by_name.get(key, 0.0)
+                                + e.time_range.elapsed_us() / 1e3 / iters)
             return us / 1e3 / iters
     raise AssertionError("torch.profiler recorded no device time")
 
@@ -319,19 +326,38 @@ def storage_bytes(*tensors) -> int:
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def check_b5(dev, dtype, peaks, tol):
-    from ovo_tpu_torch.models.layers import rope2d_freqs
-    from ovo_tpu_torch.ops.attention import (apply_rope,
-                                             rope_packed_attention,
-                                             rope_packed_attention_plain)
+# B5 at the PE tower's shape: 7 views of 577 tokens padded to 584, 16
+# heads of 64 (views, heads, hd, kv_len, L)
+B5_SHAPE = (7, 16, 64, 577, 584)
 
-    B, heads, hd, Lr, L = 7, 16, 64, 577, 584   # 7 views, 577 tokens -> 584
+
+def _b5_inputs(dev, dtype):
+    """B5's packed qkv and RoPE tables at B5_SHAPE, and the library's
+    operands: q and k rotated, head-split, with the key mask."""
+    from ovo_tpu_torch.models.layers import rope2d_freqs
+    from ovo_tpu_torch.ops.attention import apply_rope
+
+    B, heads, hd, Lr, L = B5_SHAPE
     D = heads * hd
     gen = torch.Generator(device=dev).manual_seed(5)
     qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(dtype)
     cos, sin = rope2d_freqs(24, 24, hd, n_prefix=1, device=dev)
     pad = cos.new_zeros((L - Lr, hd // 2))
     cos, sin = torch.cat([cos, pad]), torch.cat([sin, pad])
+    q, k, v = (t.reshape(B, L, heads, hd).transpose(1, 2)
+               for t in qkv.split(D, dim=-1))
+    lib = (apply_rope(q, cos, sin), apply_rope(k, cos, sin), v.contiguous(),
+           (torch.arange(L, device=dev) < Lr)[None, None, None, :])
+    return qkv, cos, sin, lib
+
+
+def check_b5(dev, dtype, peaks, tol):
+    from ovo_tpu_torch.ops.attention import (rope_packed_attention,
+                                             rope_packed_attention_plain)
+
+    B, heads, hd, Lr, L = B5_SHAPE
+    D = heads * hd
+    qkv, cos, sin, (q, k, v, mask) = _b5_inputs(dev, dtype)
     errs, shares = {}, {}
     for kv in (Lr, L):
         got = rope_packed_attention(qkv, cos, sin, heads=heads, kv_len=kv)
@@ -352,10 +378,6 @@ def check_b5(dev, dtype, peaks, tol):
                                                kv_len=Lr))
     plain_ms = time_ms(lambda: rope_packed_attention_plain(
         qkv, cos, sin, heads=heads, kv_len=Lr))
-    q, k, v = (t.reshape(B, L, heads, hd).transpose(1, 2)
-               for t in qkv.split(D, dim=-1))
-    q, k, v = apply_rope(q, cos, sin), apply_rope(k, cos, sin), v.contiguous()
-    mask = (torch.arange(L, device=dev) < Lr)[None, None, None, :]
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=mask))
     nbytes = storage_bytes(qkv, cos, sin) + B * L * D * qkv.element_size()
@@ -370,9 +392,12 @@ def check_b5(dev, dtype, peaks, tol):
                 bytes=nbytes, flops=flops, **shares)
 
 
-def check_b6(dev, dtype, peaks, tol):
-    from ovo_tpu_torch.ops.masked_pool import masked_pool, masked_pool_plain
-
+def _b6_inputs(dev, dtype):
+    """B6 at TextRegion's shape (96 mask slots, 16 heads of 64, 48 x 72
+    tokens): the path's layout (one probe query; k one row per head,
+    broadcast over the tokens; v a head-transposed view), a dense q and k
+    that exercise the softmax, and masks as soft-mask supports of random
+    regions, the last 30 slots padding."""
     M, H, hd, L = 96, 16, 64, 48 * 72
     gen = torch.Generator(device=dev).manual_seed(6)
     q = torch.randn((1, H * hd), generator=gen, device=dev).to(dtype)
@@ -381,15 +406,21 @@ def check_b6(dev, dtype, peaks, tol):
     k = k.expand(H, L, hd)                                 # as TextRegion
     v = torch.randn((L, H * hd), generator=gen, device=dev).to(dtype)
     v = v.reshape(L, H, hd).transpose(0, 1)                # as TextRegion
-    # soft-mask support of random regions; the last 30 slots are padding
     mask = torch.rand((M, L), generator=gen, device=dev) < 0.15
     mask[-30:] = False
-    scale = hd ** -0.5
-    # the path's layout (one probe query, k constant over tokens: a masked
-    # mean) and a dense case with random q / k that exercises the softmax
     kd = torch.randn((H, L, hd), generator=gen, device=dev).to(dtype)
     qd = torch.randn((M, H, hd), generator=gen, device=dev).to(dtype)
-    err = 0.0
+    return q, k, v, mask, qd, kd
+
+
+def check_b6(dev, dtype, peaks, tol):
+    from ovo_tpu_torch.ops.masked_pool import masked_pool, masked_pool_plain
+
+    q, k, v, mask, qd, kd = _b6_inputs(dev, dtype)
+    M, H, hd = q.shape
+    L = v.shape[1]
+    scale = hd ** -0.5
+    err, shares = 0.0, {}
     for qq, kk in ((q, k), (qd, kd)):
         got = masked_pool(qq, kk, v, mask, scale)
         ref = masked_pool_plain(qq, kk, v, mask, scale)
@@ -397,6 +428,19 @@ def check_b6(dev, dtype, peaks, tol):
         if not torch.isfinite(got.float()).all():
             raise AssertionError("B6 produced non-finite values")
         err = max(err, float((got.float() - ref.float()).abs().max()))
+        if dtype != torch.bfloat16:
+            continue
+        # the path's layout weighs a row's tokens alike, where the weights
+        # rounded once move no output by a step: only the dense layout
+        # tells the wrong function apart
+        if kk is k:
+            shares["path_step_share"] = step_share(got, ref)
+            if shares["path_step_share"] > ATTN_SHARE:
+                raise AssertionError(f"B6: {shares['path_step_share']} of "
+                                     f"the outputs off by more than a step")
+        else:
+            shares.update(_shares("B6", got, ref, masked_pool_rounded_weights(
+                qq, kk, v, mask, scale)))
     uniform = v.float().mean(dim=1)                        # (H, hd)
     err_pad = float((got[-30:].float() - uniform).abs().max())
     if err > tol or err_pad > tol:
@@ -412,11 +456,12 @@ def check_b6(dev, dtype, peaks, tol):
     rate = peaks[0] if dtype == torch.bfloat16 else peaks[1]
     t_bytes, t_ops = nbytes / peaks[2] * 1e3, flops / rate * 1e3
     return dict(name="masked_pool", dtype=str(dtype)[6:], shape=[M, H, hd, L],
-                max_abs_err=max(err, err_pad), tol=tol, kernel_ms=ms,
+                max_abs_err=max(err, err_pad), tol=tol,
+                max_abs_err_padded_rows=err_pad, kernel_ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, flops=flops)
+                bytes=nbytes, flops=flops, **shares)
 
 
 def _bound(nbytes, flops, dtype, peaks):
@@ -460,20 +505,24 @@ def _heads_of_packed(gen, n, L, heads, hd, dev, dtype):
     return qkv, [qkv[:, :, i].transpose(1, 2) for i in range(3)]
 
 
-# B1, B2, B11, B4 and B5 in bf16: the share of outputs that differ from
-# the plain version by more than one bf16 step at the plain output's
+# B1, B2, B11, B4, B5 and B6 in bf16: the share of outputs that differ
+# from the plain version by more than one bf16 step at the plain output's
 # magnitude. The max-abs limits alone pass a kernel that computes another
-# function at these sizes: B1 with its weights rounded once to bf16 (the
-# reference never rounds them), B2 / B11 with exp(s - m) rounded before it
-# is normalized (the reference rounds the normalized weight), B5 with its
-# normalized weights left unrounded, B4 with attn left unrounded. On an
-# H100 at the main paths' shapes (this script's kernel rows) the kernels
-# read 4.0e-4 (B1), 8.0e-5 or less (B2, B11), 4.3e-5 (B4) and 6.7e-5 (B5),
-# the wrong functions 0.037 to 0.168: the limit sits 25x above the
-# kernels' largest share and 3.7x below the wrong functions' smallest. On
-# the CPU (tests/test_torch_attention_share.py) a reordered f32 sum of the
-# right function, and B1's p_hi + p_lo split, stay under it at these widths
-# and the wrong functions break it.
+# function at these sizes: B1 and B6 with their weights rounded once to
+# bf16 (the reference's kernels never round them; B6's XLA route does),
+# B2 / B11 with exp(s - m) rounded before it is normalized (the reference
+# rounds the normalized weight), B5 with its normalized weights left
+# unrounded, B4 with attn left unrounded. On an H100 at the main paths'
+# shapes (this script's kernel rows) the kernels read 4.0e-4 (B1), 8.0e-5
+# or less (B2, B11), 4.3e-5 (B4), 1.1e-4 (B5) and 4.1e-5 (B6's dense
+# inputs), the wrong functions 0.037 to 0.168: the limit sits 25x above
+# the kernels' largest share and 3.7x below the wrong functions' smallest.
+# On the CPU (tests/test_torch_attention_share.py) a reordered f32 sum of
+# the right function, and B1's p_hi + p_lo split, stay under it at these
+# widths and the wrong functions break it; B6's path layout (one probe
+# query, k constant over the tokens) weighs a row's tokens alike, where
+# the once-rounded weights move no output by a step, so its dense inputs
+# carry the check.
 ATTN_SHARE = 1e-2
 
 
@@ -595,6 +644,17 @@ def rope_packed_unrounded_weights(qkv, cos, sin, *, heads, kv_len):
     o = flash_attention_plain(apply_rope(q, cos, sin), apply_rope(k, cos, sin),
                               v, kv_len=kv_len)
     return o.transpose(1, 2).reshape(B, L, D)
+
+
+def masked_pool_rounded_weights(q, k, v, key_mask, scale):
+    """B6's plain version with its f32 weights rounded once to bf16 before
+    p . v: the function of the reference's XLA route
+    (xla_masked_single_query_attention), not of its Pallas kernel, which
+    never rounds them. ATTN_SHARE must refuse it on B6's dense inputs."""
+    s = torch.einsum("mhd,hld->mhl", q.float() * scale, k.float())
+    s = torch.where(key_mask.bool()[:, None, :], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    return torch.einsum("mhl,hld->mhd", p, v.float()).to(q.dtype)
 
 
 def check_b1(dev, dtype, peaks, tol):
@@ -2438,18 +2498,33 @@ def run_cli(dev, frames: int = 40) -> dict:
 
 
 def run_kernel_device(dev) -> dict:
-    """B1, B2, B11, B3 and B4 in bf16 at the kernel phase's shapes: the
-    card's kernel time per call beside the library's on the same operands
-    (device_ms): SDPA for B1, B2 and B11, the whole function's library
-    route for B3 and B4 (_b3_library, _b4_library)."""
+    """B5, B6, B1, B2, B11, B3 and B4 in bf16 at the kernel phase's shapes:
+    the card's kernel time per call beside the library's on the same
+    operands (device_ms): SDPA for B5 (on the rotated heads), B6 (the
+    path's layout, the masks as a boolean mask), B1, B2 and B11, the whole
+    function's library route for B3 and B4 (_b3_library, _b4_library)."""
     from ovo_tpu_torch.ops.attention import (cross_i2t_tail_from_keys,
                                              cross_t2i_from_keys,
                                              flash_attention,
                                              packed_heads_attention,
+                                             rope_packed_attention,
                                              windowed_fused_attention)
+    from ovo_tpu_torch.ops.masked_pool import masked_pool
 
     bf, sdpa = torch.bfloat16, torch.nn.functional.scaled_dot_product_attention
     calls = {}
+    # each call binds its operands as defaults: the names are reused below
+    qkv, cos, sin, (q, k, v, mask) = _b5_inputs(dev, bf)
+    calls["rope_packed_attention"] = (
+        lambda x=qkv, c=cos, s=sin: rope_packed_attention(
+            x, c, s, heads=B5_SHAPE[1], kv_len=B5_SHAPE[3]),
+        lambda q=q, k=k, v=v, m=mask: sdpa(q, k, v, attn_mask=m))
+    q, k, v, mask, _, _ = _b6_inputs(dev, bf)
+    scale = q.shape[-1] ** -0.5
+    calls["masked_pool"] = (
+        lambda q=q, k=k, v=v, m=mask, s=scale: masked_pool(q, k, v, m, s),
+        lambda q=q.transpose(0, 1)[None], k=k[None], v=v[None],
+        m=mask[None, None], s=scale: sdpa(q, k, v, attn_mask=m, scale=s))
     gen = torch.Generator(device=dev).manual_seed(1)
     _, (q, k, v) = _heads_of_packed(gen, 1, 4096, 8, 72, dev, bf)
     calls["flash_attention"] = (lambda q=q, k=k, v=v: flash_attention(q, k, v),
@@ -2475,6 +2550,10 @@ def run_kernel_device(dev) -> dict:
     out = {tag: dict(kernel_device_ms=device_ms(kernel),
                      sdpa_device_ms=device_ms(library))
            for tag, (kernel, library) in calls.items()}
+    # B5's two launches (the rotation, the attention) apart
+    parts = {}
+    device_ms(calls["rope_packed_attention"][0], by_name=parts)
+    out["rope_packed_attention"]["kernel_device_ms_by_name"] = parts
     heads = 8
     for bk in (256, 1):
         x = _cross_inputs(dev, bf, bk)
@@ -2579,11 +2658,14 @@ def main(argv) -> int:
     # f32: 1e-4 (the kernels reorder the sums). bf16: B5 and its plain
     # version both round the normalized softmax weights to bf16 before p.v
     # (as the reference does), so a weight on a rounding edge may flip; B6
-    # keeps them in f32 where the plain version rounds them; both round the
-    # output. The outputs here are attention means of N(0,1) values, below
-    # ~0.5 (B5) and ~0.25 (B6) in magnitude, where one bf16 step is 2^-9 and
-    # 2^-10. The limits are a few such steps: measured errors were 3.9e-3
-    # (B5's first design) and 9.8e-4 (B6) on an H100.
+    # and its plain version both keep them in f32 (the kernel as p_hi +
+    # p_lo), as the reference's kernel does; both round the output. The
+    # outputs here are attention means of N(0,1) values, below ~0.5 (B5)
+    # and ~0.25 (B6) in magnitude, where one bf16 step is 2^-9 and 2^-10.
+    # The limits are a few such steps: measured errors were 3.9e-3 (B5's
+    # first design) and 9.8e-4 (B6) on an H100. B6's weights rounded once
+    # (the reference's XLA route) stay under 4e-3 as well: B6 also holds
+    # ATTN_SHARE, on its dense inputs.
     # B1-B4 in bf16 (tests/test_torch_cuda_kernels.py says the same): B1 and
     # its plain version both keep the weights in f32 and round once, means
     # of N(0,1) values below 1: 1e-2. B2 rounds the normalized weights on

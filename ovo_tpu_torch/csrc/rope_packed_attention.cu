@@ -17,83 +17,92 @@
 //             columns [h*hd, (h+1)*hd).
 //
 // What bounds it on an H100: at the PE-Core path shape (7 views, L = 584,
-// D = 1024, 16 heads of 64, bf16) one launch needs ~9.6 GFLOP and moves
-// ~33 MB, so the tensor cores (989 TF/s) and HBM (3.35 TB/s) both bound it
-// at ~10 us. This version does its products with f32 FMAs on the CUDA
-// cores (67 TF/s peak, fed from shared memory), so it is bound by FMA issue
-// and shared-memory bandwidth, far above that floor; the tensor cores are
-// later work. The first design (one online-softmax pass that divided by the
-// sum at the end, 0.626 ms at that shape) computed another function in bf16:
-// its weights never rounded.
+// kv_len 577, D = 1024, 16 heads of 64, bf16) one launch needs ~9.7 GFLOP
+// and moves ~33 MB, so HBM (3.35 TB/s) bounds it at ~10 us and the tensor
+// cores (989 TF/s) at ~10 us too. The reference rounds the NORMALIZED
+// weight to the dtype, so a row's max and sum must be known before any
+// weight is formed: two passes over the keys, q . k computed twice.
 //
-// Design: one block of 256 threads per (view*head, 64-query tile). The q tile
-// is rotated once into shared memory (f32, padded rows: no bank conflicts).
+// bf16 design (tensor cores; B11's two-pass mma.sync layout, with RoPE and
+// kv_len added), two launches:
+// 1. rope_rotate_kernel rotates q and k once per token into a (2, B, L, D)
+//    workspace: a thread owns the pair (d, d + hd/2) of one head of one
+//    row with the row's bf16 cos and sin, and rounds each product and each
+//    sum to bf16 in layers.apply_rope's op order, so the rotated values are
+//    exactly the reference's and exact mma operands (~17 MB written and
+//    read back, mostly from the 50 MB L2).
+// 2. rope_mma_kernel: one block of eight warps per (view * head, 128-query
+//    tile); each warp owns 16 query rows, whose q fragments it keeps in
+//    registers. 64-key chunks of the rotated k, and in pass 2 of v (read
+//    in place from the packed projection, row stride 3D), stream through
+//    shared memory, double-buffered with 16-byte cp.async copies. Pass 1
+//    computes q . k on mma.sync m16n8k16 (f32 accumulators, then times
+//    scale) and each lane's running max and sum; pass 2 computes q . k
+//    again and p . v with p = bf16(exp(s - m) / l), the reference's
+//    rounding point. Keys at or past kv_len are zero rows at -1e30; chunk
+//    rows past kv_len round up to 16, so at the PE shape the last chunk is
+//    one 16-row step with one valid key. The head size is a template
+//    argument (every multiple of 16 up to 128), so the unrolled loops
+//    carry no run-time guards.
+// Throwaway probes on an H100 (not kept) chose this over two alternatives
+// the first bf16 version had: rotating each 64-key chunk in shared memory
+// inside the attention kernel took a large share of its time (a latency-bound
+// loop of cos / sin loads and bf16 roundings per block and chunk), and
+// keeping a head's rotated keys resident in shared memory for pass 2 (85 KB
+// at the PE shape) ran slower than streaming them twice, with or without
+// the rotation (fewer blocks an SM). Eight warps a block ran faster than
+// four. At the PE shape the 560 blocks fill the 132 SMs (two blocks an SM)
+// 2.1 times. The first design (f32 FMAs on the CUDA cores, weights
+// unrounded) took 0.626 ms at the PE shape, its rounding repair (two FMA
+// passes) 0.999 ms.
+//
+// float32 keeps that FMA design (the tests' and f32 towers' route): one
+// block of 256 threads per (view*head, 64-query tile). The q tile is
+// rotated once into shared memory (f32, padded rows: no bank conflicts).
 // 64-key tiles stream through shared memory twice: pass 1 recomputes the
 // scores of each tile and keeps only each row's running max and sum; pass 2
-// recomputes them again, forms the normalized, rounded weights and
-// accumulates p . v (B2's two-pass structure, kept here on FMAs). Each thread
-// owns a 4x4 micro-tile of the 64x64 score tile (rows 4*(tid/16)+i, keys
-// tid%16 + 16*j) and 4 rows x hd/16 columns of the output; row max and sum
-// reduce over the 16 lanes of a half-warp with shuffles. Tiles wholly beyond
-// kv_len are skipped in both passes: their keys would get exp(-1e30 - m) = 0
-// exactly. kv_len >= 1 keeps every row's max finite.
+// recomputes them again, forms the normalized weights and accumulates
+// p . v. Each thread owns a 4x4 micro-tile of the 64x64 score tile (rows
+// 4*(tid/16)+i, keys tid%16 + 16*j) and 4 rows x hd/16 columns of the
+// output; row max and sum reduce over the 16 lanes of a half-warp with
+// shuffles. Tiles wholly beyond kv_len are skipped in both passes: their
+// keys would get exp(-1e30 - m) = 0 exactly. kv_len >= 1 keeps every row's
+// max finite.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// float32: FMAs on the CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int LDP = BK + 4;
 constexpr int THREADS = 256;
 
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// value rounded to the working dtype, carried as f32
-template <typename T>
-__device__ __forceinline__ float rnd(float x) { return to_f<T>(from_f<T>(x)); }
-
-// element d of the rotate-half RoPE of one head row (hd values at x)
-template <typename T>
-__device__ __forceinline__ float rope_elem(const T* __restrict__ x, int d,
+// element d of the rotate-half RoPE of one head row (hd values at x), in
+// layers.apply_rope's op order
+__device__ __forceinline__ float rope_elem(const float* __restrict__ x, int d,
                                            int h2, const float* __restrict__ cs,
                                            const float* __restrict__ sn) {
-  if (d < h2) {
-    const float c = rnd<T>(cs[d]), s = rnd<T>(sn[d]);
-    const float a = rnd<T>(__fmul_rn(to_f<T>(x[d]), c));
-    const float b = rnd<T>(__fmul_rn(to_f<T>(x[d + h2]), s));
-    return rnd<T>(__fsub_rn(a, b));
-  }
+  if (d < h2) return __fsub_rn(__fmul_rn(x[d], cs[d]),
+                               __fmul_rn(x[d + h2], sn[d]));
   const int e = d - h2;
-  const float c = rnd<T>(cs[e]), s = rnd<T>(sn[e]);
-  const float a = rnd<T>(__fmul_rn(to_f<T>(x[e]), s));
-  const float b = rnd<T>(__fmul_rn(to_f<T>(x[d]), c));
-  return rnd<T>(__fadd_rn(a, b));
+  return __fadd_rn(__fmul_rn(x[e], sn[e]), __fmul_rn(x[d], cs[e]));
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-rope_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
-                 const float* __restrict__ sin_t, T* __restrict__ out, int L,
-                 int D, int heads, int kv_len, float scale) {
+rope_attn_kernel(const float* __restrict__ qkv,
+                 const float* __restrict__ cos_t,
+                 const float* __restrict__ sin_t, float* __restrict__ out,
+                 int L, int D, int heads, int kv_len, float scale) {
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 16;
   constexpr int H2 = HD / 2;
@@ -107,7 +116,7 @@ rope_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
   const int h = blockIdx.y % heads;
   const int q0 = blockIdx.x * BQ;
   const size_t rs = 3 * (size_t)D;
-  const T* base = qkv + (size_t)b * L * rs;
+  const float* base = qkv + (size_t)b * L * rs;
   const int qc = h * HD, kc = D + h * HD, vc = 2 * D + h * HD;
   const int tid = threadIdx.x;
   const int rg = tid >> 4;  // rows 4*rg .. 4*rg+3
@@ -117,7 +126,7 @@ rope_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
     const int r = i / HD, d = i % HD, t = q0 + r;
     float val = 0.f;
     if (t < L)
-      val = rope_elem<T>(base + t * rs + qc, d, H2, cos_t + (size_t)t * H2,
+      val = rope_elem(base + t * rs + qc, d, H2, cos_t + (size_t)t * H2,
                          sin_t + (size_t)t * H2);
     q_s[r * LD + d] = val;
   }
@@ -128,9 +137,9 @@ rope_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
       const int r = i / HD, d = i % HD, t = k0 + r;
       float kv = 0.f, vv = 0.f;
       if (t < L) {
-        kv = rope_elem<T>(base + t * rs + kc, d, H2, cos_t + (size_t)t * H2,
+        kv = rope_elem(base + t * rs + kc, d, H2, cos_t + (size_t)t * H2,
                           sin_t + (size_t)t * H2);
-        if (with_v) vv = to_f<T>(base[t * rs + vc + d]);
+        if (with_v) vv = base[t * rs + vc + d];
       }
       k_s[r * LD + d] = kv;
       if (with_v) v_s[r * HD + d] = vv;
@@ -193,7 +202,7 @@ rope_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
     }
   }
 
-  // pass 2: the normalized weights, rounded to the dtype, times v
+  // pass 2: the normalized weights times v
   float acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -210,7 +219,7 @@ rope_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         p_s[(4 * rg + i) * LDP + cl + 16 * j] =
-            rnd<T>(expf(s[i][j] - m_i[i]) / l_i[i]);
+            expf(s[i][j] - m_i[i]) / l_i[i];
     __syncthreads();
 
 #pragma unroll 4
@@ -231,63 +240,303 @@ rope_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * rg + i;
     if (row >= L) continue;
-    T* o = out + ((size_t)b * L + row) * D + h * HD;
+    float* o = out + ((size_t)b * L + row) * D + h * HD;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) o[cl + 16 * c] = from_f<T>(acc[i][c]);
+    for (int c = 0; c < NC; ++c) o[cl + 16 * c] = acc[i][c];
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const void* qkv, const float* cos_t, const float* sin_t,
                    void* out, int B, int L, int D, int heads, int kv_len,
                    float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * LDP);
   cudaError_t err = cudaFuncSetAttribute(
-      rope_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rope_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((L + BQ - 1) / BQ, B * heads);
-  rope_attn_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(qkv), cos_t, sin_t, static_cast<T*>(out), L, D,
-      heads, kv_len, scale);
+  rope_attn_kernel<HD><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(qkv), cos_t, sin_t, static_cast<float*>(out),
+      L, D, heads, kv_len, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int R_WARPS = 8;
+constexpr int R_THREADS = 32 * R_WARPS;
+constexpr int R_ROWS = 16 * R_WARPS;  // query rows a block
+constexpr int KC = 64;                // keys a chunk
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// rotate-half RoPE of q and k, once per token: qkv (B, L, 3D) -> rot (2, B,
+// L, D), q then k. A block per row (section, b, t); a thread a pair (d,
+// d + hd/2) of one head. Every product and sum rounds to bf16 in
+// layers.apply_rope's op order.
+template <int HD>
+__global__ void __launch_bounds__(256)
+rope_rotate_kernel(const bf16* __restrict__ qkv,
+                   const float* __restrict__ cos_t,
+                   const float* __restrict__ sin_t, bf16* __restrict__ rot,
+                   int BL, int L, int D) {
+  constexpr int H2 = HD / 2;
+  const int row = blockIdx.x;  // sec * B * L + b * L + t
+  const int sec = row >= BL, t = (row - sec * BL) % L;
+  const bf16* x = qkv + (long long)(row - sec * BL) * 3 * D + sec * D;
+  bf16* y = rot + (long long)row * D;
+  const float* cr = cos_t + t * H2;
+  const float* sr = sin_t + t * H2;
+  for (int p = threadIdx.x; p < D / 2; p += blockDim.x) {
+    const int d = p % H2, col = p / H2 * HD + d;
+    const float c = bf16_round(cr[d]), s = bf16_round(sr[d]);
+    const float x1 = __bfloat162float(x[col]);
+    const float x2 = __bfloat162float(x[col + H2]);
+    const float a = bf16_round(__fmul_rn(x1, c));
+    const float b = bf16_round(__fmul_rn(x2, s));
+    const float e = bf16_round(__fmul_rn(x1, s));
+    const float f = bf16_round(__fmul_rn(x2, c));
+    y[col] = __float2bfloat16_rn(__fsub_rn(a, b));
+    y[col + H2] = __float2bfloat16_rn(__fadd_rn(e, f));
+  }
+}
+
+// HD: the head size (a multiple of 16). q and k: the rotated heads (row
+// stride D), v: the packed projection's (row stride 3D).
+template <int HD>
+__global__ void __launch_bounds__(R_THREADS, HD > 64 ? 1 : 2)
+rope_mma_kernel(const bf16* __restrict__ rot, const bf16* __restrict__ qkv,
+                bf16* __restrict__ out, int B, int L, int D, int heads,
+                int kv_len, float scale, int vshift) {
+  constexpr int KT = HD / 16;
+  constexpr int NT = HD / 8;
+  constexpr int LDS = HD + 8;  // odd 16-byte units: no bank conflicts
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // R_ROWS x LDS
+  bf16* k_s = q_s + R_ROWS * LDS;                   // 2 x KC x LDS
+  bf16* v_s = k_s + 2 * KC * LDS;                   // 2 x KC x LDS
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int q_base = R_ROWS * blockIdx.x;
+  const int row0 = q_base + 16 * warp;
+  const bool rows_here = row0 < L;
+  const bf16* qb = rot + (long long)b * L * D + h * HD;
+  const bf16* kb = qb + (long long)B * L * D;
+  const bf16* vb = qkv + (long long)b * L * 3 * D + 2 * D + h * HD;
+
+  // steps: pass 1 over the chunks (k), then pass 2 (k and v)
+  const int n_chunks = (kv_len + KC - 1) / KC;
+  const int steps = 2 * n_chunks;
+  // the last chunk holds the keys left, rounded up to 16
+  auto chunk_rows = [&](int c0) {
+    return min(KC, (kv_len - c0 + 15) / 16 * 16);
+  };
+  auto fetch = [&](int s) {
+    const bool pass2 = s >= n_chunks;
+    const int c0 = (s - (pass2 ? n_chunks : 0)) * KC;
+    const int rows = chunk_rows(c0);
+    load_rows(k_s + (s & 1) * KC * LDS, LDS, kb, D, c0, rows, kv_len, HD,
+              vshift, tid, R_THREADS);
+    if (pass2)
+      load_rows(v_s + (s & 1) * KC * LDS, LDS, vb, 3LL * D, c0, rows, kv_len,
+                HD, vshift, tid, R_THREADS);
+    cp_async_commit();
+  };
+
+  load_rows(q_s, LDS, qb, D, q_base, R_ROWS, L, HD, vshift, tid, R_THREADS);
+  fetch(0);
+
+  uint32_t qa[KT][4];
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // pass 1 keeps each lane's running max and sum over its own columns; the
+  // quad that shares a row combines them before pass 2
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rl[2];
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
+
+  for (int s = 0; s < steps; ++s) {
+    // step s's copies have landed, and every warp is done with step s - 1,
+    // whose buffers the next copies refill
+    cp_async_wait<0>();
+    __syncthreads();
+    if (s + 1 < steps) fetch(s + 1);
+    const bool pass2 = s >= n_chunks;
+    const int c0 = (s - (pass2 ? n_chunks : 0)) * KC;
+    const int nj = chunk_rows(c0) / 8;  // n8 key tiles, even
+    const bf16* kbuf = k_s + (s & 1) * KC * LDS;
+    if (s == 0) {
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+        ldmatrix_x4(qa[kt], q_s + (16 * warp + a_row) * LDS + 16 * kt + a_col);
+    }
+    if (!rows_here) continue;
+
+    // scores of the warp's 16 rows against the chunk's keys, times scale;
+    // keys at or past kv_len at -1e30
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (2 * jj < nj) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, kbuf + (16 * jj + b_row) * LDS + 16 * kt + b_col);
+          mma_bf16(sc[2 * jj], qa[kt], kf[0], kf[1]);
+          mma_bf16(sc[2 * jj + 1], qa[kt], kf[2], kf[3]);
+        }
+      }
+    }
+    const bool edge = c0 + 8 * nj > kv_len;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] *= scale;
+        if (edge && c0 + 8 * j + 2 * c + (e & 1) >= kv_len) sc[j][e] = -1e30f;
+      }
+
+    if (!pass2) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = m[hh];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (j < nj) mx = fmaxf(mx, fmaxf(sc[j][2 * hh], sc[j][2 * hh + 1]));
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (j < nj)
+            sum += expf(sc[j][2 * hh] - mx) + expf(sc[j][2 * hh + 1] - mx);
+        l[hh] = l[hh] * expf(m[hh] - mx) + sum;
+        m[hh] = mx;
+      }
+      continue;
+    }
+    if (s == n_chunks) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        float sum = l[hh] * expf(m[hh] - mx);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        m[hh] = mx;
+        l[hh] = sum;
+        rl[hh] = 1.f / sum;
+      }
+    }
+    // the reference's rounding point: normalized, then rounded
+    const bf16* vbuf = v_s + (s & 1) * KC * LDS;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (2 * kk < nj) {
+        uint32_t pa[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int hh = r & 1;
+          const float* pr = &sc[2 * kk + (r >> 1)][2 * hh];
+          pa[r] = pack_bf16(div_by_sum(expf(pr[0] - m[hh]), l[hh], rl[hh]),
+                            div_by_sum(expf(pr[1] - m[hh]), l[hh], rl[hh]));
+        }
+        const bf16* vrow = vbuf + (16 * kk + a_row) * LDS;
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, vrow + 16 * np + a_col);
+          mma_bf16(o[2 * np], pa, vf[0], vf[1]);
+          mma_bf16(o[2 * np + 1], pa, vf[2], vf[3]);
+        }
+      }
+    }
+  }
+
+  if (!rows_here) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + g + 8 * hh;
+    if (row >= L) continue;
+    bf16* orow = out + ((long long)b * L + row) * D + h * HD;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * c) =
+          __floats2bfloat162_rn(o[n][2 * hh], o[n][2 * hh + 1]);
+  }
+}
+
+// rot: a (2, B, L, D) bf16 workspace for the rotated q and k
+template <int HD>
+cudaError_t launch_mma(const void* qkv, const float* cos_t, const float* sin_t,
+                       void* rot, void* out, int B, int L, int D, int heads,
+                       int kv_len, float scale, cudaStream_t stream) {
+  constexpr int LDS = HD + 8;
+  const int threads = D / 2 < 256 ? (D / 2 + 31) / 32 * 32 : 256;
+  rope_rotate_kernel<HD><<<2 * B * L, threads, 0, stream>>>(
+      static_cast<const bf16*>(qkv), cos_t, sin_t, static_cast<bf16*>(rot),
+      B * L, L, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(bf16) * (R_ROWS + 4 * KC) * LDS;
+  const void* ptrs[2] = {rot, qkv};
+  const long long strides[2] = {D, 3LL * D};
+  const int vshift = vector_shift(ptrs, 2, strides, 2, HD);
+  err = cudaFuncSetAttribute(rope_mma_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((L + R_ROWS - 1) / R_ROWS, B * heads);
+  rope_mma_kernel<HD><<<grid, R_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(rot), static_cast<const bf16*>(qkv),
+      static_cast<bf16*>(out), B, L, D, heads, kv_len, scale, vshift);
+  return cudaGetLastError();
+}
+
+// dtype 0 = float32 (FMA design), 1 = bfloat16 (tensor cores)
 cudaError_t dispatch(int hd, const void* qkv, const float* c, const float* s,
-                     void* out, int B, int L, int D, int heads, int kv_len,
-                     float scale, cudaStream_t st) {
+                     void* rot, void* out, int B, int L, int D, int heads,
+                     int kv_len, float scale, int dtype, cudaStream_t st) {
+#define OVO_ROPE_HD(N)                                                      \
+  case N:                                                                   \
+    return dtype == 0                                                       \
+        ? launch<N>(qkv, c, s, out, B, L, D, heads, kv_len, scale,          \
+                           st)                                              \
+        : launch_mma<N>(qkv, c, s, rot, out, B, L, D, heads, kv_len, scale, \
+                        st);
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   switch (hd) {
-    case 16: return launch<T, 16>(qkv, c, s, out, B, L, D, heads, kv_len, scale, st);
-    case 32: return launch<T, 32>(qkv, c, s, out, B, L, D, heads, kv_len, scale, st);
-    case 48: return launch<T, 48>(qkv, c, s, out, B, L, D, heads, kv_len, scale, st);
-    case 64: return launch<T, 64>(qkv, c, s, out, B, L, D, heads, kv_len, scale, st);
-    case 80: return launch<T, 80>(qkv, c, s, out, B, L, D, heads, kv_len, scale, st);
-    case 96: return launch<T, 96>(qkv, c, s, out, B, L, D, heads, kv_len, scale, st);
-    case 112: return launch<T, 112>(qkv, c, s, out, B, L, D, heads, kv_len, scale, st);
-    case 128: return launch<T, 128>(qkv, c, s, out, B, L, D, heads, kv_len, scale, st);
+    OVO_ROPE_HD(16) OVO_ROPE_HD(32) OVO_ROPE_HD(48) OVO_ROPE_HD(64)
+    OVO_ROPE_HD(80) OVO_ROPE_HD(96) OVO_ROPE_HD(112) OVO_ROPE_HD(128)
     default: return cudaErrorInvalidValue;
   }
+#undef OVO_ROPE_HD
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16; rot (bf16 only, else unused): a
+// workspace of 2 * B * L * D bf16 values for the rotated q and k. Returns
+// the cudaError_t of the launches.
 extern "C" int ovo_rope_packed_attention(const void* qkv, const void* cos_t,
-                                         const void* sin_t, void* out, int B,
-                                         int L, int D, int heads, int kv_len,
-                                         float scale, int dtype,
-                                         void* stream) {
+                                         const void* sin_t, void* rot,
+                                         void* out, int B, int L, int D,
+                                         int heads, int kv_len, float scale,
+                                         int dtype, void* stream) {
   if (heads <= 0 || D % heads != 0 || kv_len < 1 || kv_len > L)
     return (int)cudaErrorInvalidValue;
-  const int hd = D / heads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* c = static_cast<const float*>(cos_t);
-  const float* s = static_cast<const float*>(sin_t);
-  if (dtype == 0)
-    return (int)dispatch<float>(hd, qkv, c, s, out, B, L, D, heads, kv_len, scale, st);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(hd, qkv, c, s, out, B, L, D, heads, kv_len, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch(D / heads, qkv, static_cast<const float*>(cos_t),
+                       static_cast<const float*>(sin_t), rot, out, B, L, D,
+                       heads, kv_len, scale, dtype,
+                       static_cast<cudaStream_t>(stream));
 }

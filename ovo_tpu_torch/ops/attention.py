@@ -138,16 +138,19 @@ def rope_packed_attention(qkv: torch.Tensor, cos: torch.Tensor,
         raise ValueError("rope_packed_attention needs contiguous inputs")
     scale = scale if scale is not None else hd ** -0.5
     out = torch.empty((B, L, D), dtype=qkv.dtype, device=qkv.device)
+    # bf16: the rotated q and k, written once by the kernel's first launch
+    rot = torch.empty((2, B, L, D) if qkv.dtype == torch.bfloat16 else (0,),
+                      dtype=qkv.dtype, device=qkv.device)
     lib = cuda_build.library("rope_packed_attention")
     fn = lib.ovo_rope_packed_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                 out.data_ptr(), B, L, D, heads, kv, float(scale),
-                 _DTYPES[qkv.dtype], stream)
+                 rot.data_ptr(), out.data_ptr(), B, L, D, heads, kv,
+                 float(scale), _DTYPES[qkv.dtype], stream)
     cuda_build.check(err, "rope_packed_attention")
     cuda_build.count_launch("rope_packed_attention")
     return out

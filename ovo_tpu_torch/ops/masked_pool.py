@@ -6,7 +6,9 @@ per mask, tokens SHARED across masks as (H, L, D) keys/values, and a per-mask
 (M, L) key mask.
 
 ``masked_pool`` launches the hand-written kernel ``csrc/masked_pool.cu`` on
-CUDA tensors and runs :func:`masked_pool_plain` on CPU tensors.
+CUDA tensors (the tokens split into spans, :func:`pool_span`, each span's
+partial softmax in an f32 workspace, then their combine) and runs
+:func:`masked_pool_plain` on CPU tensors.
 ``masked_single_query_attention`` is the dispatcher the models call.
 """
 from __future__ import annotations
@@ -72,21 +74,36 @@ def masked_pool(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "stride on the head dim")
     mask_u8 = key_mask.view(torch.uint8) if key_mask.dtype == torch.bool \
         else key_mask
+    span = pool_span(M, H, L, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    n_spans = -(-L // span)
     out = torch.empty((M, H, D), dtype=q.dtype, device=q.device)
+    ws = torch.empty((n_spans * H * M * (D + 2),), dtype=torch.float32,
+                     device=q.device)
     fn = cuda_build.library("masked_pool").ovo_masked_pool
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
-                 out.data_ptr(), M, H, L, D, k.stride(0), k.stride(1),
-                 v.stride(0), v.stride(1), float(scale), _DTYPES[q.dtype],
-                 stream)
+                 out.data_ptr(), ws.data_ptr(), M, H, L, D, k.stride(0),
+                 k.stride(1), v.stride(0), v.stride(1), float(scale), span,
+                 _DTYPES[q.dtype], stream)
     cuda_build.check(err, "masked_pool")
     cuda_build.count_launch("masked_pool")
     return out
+
+
+def pool_span(M: int, H: int, L: int, n_sm: int) -> int:
+    """Tokens per span of B6's split grid: the longest multiple of the
+    kernel's 64-token chunk that still gives at least twice ``n_sm``
+    blocks of (span, head, 128 masks), or one chunk where no span
+    length does."""
+    chunks = -(-L // 64)
+    groups = -(-M // 128)
+    return 64 * max(1, chunks * H * groups // (2 * n_sm))
 
 
 def masked_single_query_attention(q: torch.Tensor, k: torch.Tensor,

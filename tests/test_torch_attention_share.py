@@ -1,7 +1,7 @@
 """The share statistic that chip_smoke.py and the card tests hold kernels
 B1 (flash_attention), B2 (windowed_fused_attention), B11
-(packed_heads_attention), B3 (cross_t2i), B4 (cross_i2t_tail) and B5
-(rope_packed_attention) to in bf16, beside their max-abs limits: the share
+(packed_heads_attention), B3 (cross_t2i), B4 (cross_i2t_tail), B5
+(rope_packed_attention) and B6 (masked_pool) to in bf16, beside their max-abs limits: the share
 of outputs that differ from the plain version by more than one bf16 step
 at the plain output's magnitude, at most ``ATTN_SHARE`` (``B3_SHARE`` for
 B3, whose output dilutes a weight's rounding over dk products).
@@ -12,7 +12,8 @@ sum of the right function (keys, or B4's tokens, permuted), and B1's p_hi
 the functions the kernels must not compute break it. Those are B1 with its
 weights rounded once to bf16 (which the max-abs limit alone passes), B2 /
 B11 with exp(s - m) rounded before it is normalized, B3 and B5 with their
-normalized weights left unrounded, and B4 with attn left unrounded.
+normalized weights left unrounded, B4 with attn left unrounded, and B6
+with its f32 weights rounded once (the reference's XLA route).
 """
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ import torch
 
 import chip_smoke
 from ovo_tpu_torch.ops import attention as A
+from ovo_tpu_torch.ops import masked_pool as M_
 
 BF = torch.bfloat16
 
@@ -187,3 +189,37 @@ def test_rope_packed_share_tells_unrounded_weights_apart(B, heads, L, kv_len):
     # B5's max-abs limit (1e-2) alone passes the unrounded weights
     assert float((wrong.float() - ref.float()).abs().max()) <= 1e-2
     assert share(wrong, ref) > chip_smoke.ATTN_SHARE
+
+
+@pytest.mark.parametrize("layout", ["path", "dense"])
+def test_masked_pool_share_tells_rounded_weights_apart(layout):
+    """B6 at TextRegion's shape (96 masks, 16 heads of 64, 48 x 72 tokens,
+    15%-dense masks, the last 30 slots padding). The path's layout (one
+    probe query, k constant over the tokens) gives every token of a row
+    the same weight, so rounding the weights once scales a row's output by
+    at most 2^-9 and moves no output by more than a step: the path cannot
+    tell the two functions apart. The dense layout (random q and k) can:
+    there the once-rounded weights break ATTN_SHARE while a reordered f32
+    sum stays under it, and the max-abs limit (4e-3) passes both."""
+    M, H, hd, L = 96, 16, 64, 48 * 72
+    rng = np.random.default_rng(60)
+    if layout == "path":
+        q = _bf16(rng, 1, H, hd).expand(M, H, hd).contiguous()
+        k = _bf16(rng, H, 1, hd).expand(H, L, hd)
+    else:
+        q, k = _bf16(rng, M, H, hd), _bf16(rng, H, L, hd)
+    v = _bf16(rng, L, H, hd).transpose(0, 1)
+    mask = torch.from_numpy(rng.random((M, L)) < 0.15)
+    mask[-30:] = False
+    ref = M_.masked_pool_plain(q, k, v, mask, hd ** -0.5)
+    perm = torch.from_numpy(rng.permutation(L))
+    reordered = M_.masked_pool_plain(q, k[:, perm], v[:, perm],
+                                     mask[:, perm], hd ** -0.5)
+    wrong = chip_smoke.masked_pool_rounded_weights(q, k, v, mask, hd ** -0.5)
+    share = chip_smoke.step_share
+    assert share(reordered, ref) <= chip_smoke.ATTN_SHARE
+    assert float((wrong.float() - ref.float()).abs().max()) <= 4e-3
+    if layout == "path":
+        assert share(wrong, ref) <= chip_smoke.ATTN_SHARE
+    else:
+        assert share(wrong, ref) > chip_smoke.ATTN_SHARE

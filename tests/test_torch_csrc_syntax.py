@@ -45,6 +45,7 @@ struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }

@@ -14,13 +14,13 @@ neither jax nor the JAX package, so it also runs on a machine without them:
 Tolerances: 1e-4 abs in f32 (the kernels reorder the sums). In bf16 on
 N(0,1) inputs B5 and its plain version both round the normalized softmax
 weights to bf16 before p.v, as the reference does, so a weight on a
-rounding edge may flip (2^-9 relative); B6's kernel keeps them in f32
-where the plain version rounds them; both round the output to bf16. The
-outputs are softmax means of N(0,1) values: below 1 in magnitude for B5
-here (over 100-145 keys), where one bf16 step is at most 2^-8, and below
-0.25 for B6 (over ~400 keys), where it is at most 2^-10. The limits are
-those of chip_smoke.py: 1e-2 (B5) and 4e-3 (B6); B5 in bf16 also holds
-chip_smoke.ATTN_SHARE (below).
+rounding edge may flip (2^-9 relative); B6 and its plain version both
+keep the weights in f32 (the kernel as p_hi + p_lo); both round the output
+to bf16. The outputs are softmax means of N(0,1) values: below 1 in
+magnitude for B5 here (over 100-145 keys), where one bf16 step is at most
+2^-8, and below 0.25 for B6 (over ~400 keys), where it is at most 2^-10.
+The limits are those of chip_smoke.py: 1e-2 (B5) and 4e-3 (B6); B5 and B6
+in bf16 also hold chip_smoke.ATTN_SHARE (below).
 """
 import numpy as np
 import pytest
@@ -89,6 +89,62 @@ def test_masked_pool_kernel_matches_plain(cuda_device, dtype, tol):
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     assert (got.float() - ref.float()).abs().max().item() <= tol
+    # bf16: the weights stay f32 in effect, as in the reference's kernel
+    assert dtype != torch.bfloat16 or step_share(got, ref) <= ATTN_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_rope_packed_kernel_edges(cuda_device, dtype, tol, hd):
+    """L = 145 (not a multiple of 16) and kv_len = 129: the last 64-key
+    chunk holds one valid key."""
+    heads, L, kv_len = 4, 145, 129
+    qkv, cos, sin = _rope_inputs(17 + hd, 2, heads, hd, L, 12)
+    q = torch.from_numpy(qkv).to(cuda_device, dtype)
+    c = torch.from_numpy(cos).to(cuda_device)
+    s = torch.from_numpy(sin).to(cuda_device)
+    got = rope_packed_attention(q, c, s, heads=heads, kv_len=kv_len)
+    ref = rope_packed_attention_plain(q, c, s, heads=heads, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    assert dtype != torch.bfloat16 or step_share(got, ref) <= ATTN_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,L", [(40, 700), (40, 701), (150, 700)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 4e-3)])
+def test_masked_pool_kernel_edges(cuda_device, dtype, tol, M, L):
+    """B6's split grid: L not a multiple of the span (701 also takes the
+    mask byte by byte), M not a multiple of 16 (150: two 128-mask
+    groups), the second span masked in every row, fully masked rows, and
+    TextRegion's stride-0 k with a head-transposed v."""
+    from ovo_tpu_torch.ops.masked_pool import pool_span
+
+    H, hd = 4, 64
+    span = pool_span(M, H, L, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    assert L % span != 0 and -(-L // span) >= 3
+    q, k, v, mask = _pool_inputs(19, M, H, L, hd, full_masked_rows=(3, 37))
+    mask[:, span:2 * span] = False
+    qd = torch.from_numpy(q).to(cuda_device, dtype)
+    kb = torch.from_numpy(k[:, :1]).to(cuda_device, dtype).expand(H, L, hd)
+    vt = torch.from_numpy(np.ascontiguousarray(v.transpose(1, 0, 2))).to(
+        cuda_device, dtype).transpose(0, 1)
+    md = torch.from_numpy(mask).to(cuda_device)
+    for kk in (kb, torch.from_numpy(k).to(cuda_device, dtype)):
+        got = masked_pool(qd, kk, vt, md, 0.125)
+        ref = masked_pool_plain(qd, kk, vt, md, 0.125)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        assert (got.float() - ref.float()).abs().max().item() <= tol
+        assert dtype != torch.bfloat16 or step_share(got, ref) <= ATTN_SHARE
+        uniform = vt.float().mean(dim=1)
+        for r in (3, 37):
+            assert (got[r].float() - uniform).abs().max().item() <= tol
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,12 @@
 """Kernels B5 (rope_packed_attention) and B6 (masked_pool) of the PyTorch
 port: their plain versions against the JAX package's Pallas kernels run in
-interpret mode on the CPU, at 2e-5 abs (same math, different summation
-order). The CUDA kernels are held against these plain versions in
+interpret mode on the CPU, at 2e-5 abs in f32 (same math, different
+summation order), and in bf16 at the limits the card holds the kernels to
+(``chip_smoke.py``): B5 max abs 1e-2 and at most ``ATTN_SHARE`` of the
+outputs off by more than one bf16 step (both sides round the rotated q / k
+and the normalized weights, so a value on a rounding edge may flip), B6
+max abs 4e-3 (the weights stay f32 on both sides; one rounding of the
+output). The CUDA kernels are held against these plain versions in
 ``tests/test_torch_cuda_kernels.py``, which runs on the card.
 """
 import numpy as np
@@ -13,6 +18,7 @@ from ovo_tpu.models.layers import rope2d_freqs as jax_rope2d_freqs
 from ovo_tpu.ops.attention import rope_packed_attention as jax_rope_packed
 from ovo_tpu.ops.masked_pool import pallas_masked_pool
 
+from chip_smoke import ATTN_SHARE, step_share
 from ovo_tpu_torch.models.layers import rope2d_freqs
 from ovo_tpu_torch.ops import cuda_build
 from ovo_tpu_torch.ops.attention import (rope_packed_attention,
@@ -42,6 +48,23 @@ def test_rope_packed_plain_matches_pallas(L, grid, kv_len):
                                 kv_len=kv_len).numpy()
     assert got.shape == (B, L, H * hd)
     np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_rope_packed_plain_matches_pallas_bf16():
+    """PE-Core's head size (64), keys past kv_len masked, L not a multiple
+    of 8 (the Pallas wrapper pads it)."""
+    B, H, hd, L, kv_len = 2, 2, 64, 145, 130
+    qkv, cos, sin = _rope_inputs(8, B, H, hd, L, 12)
+    ref = jax_rope_packed(jnp.asarray(qkv).astype(jnp.bfloat16),
+                          jnp.asarray(cos), jnp.asarray(sin), heads=H,
+                          kv_len=kv_len, interpret=True)
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    got = rope_packed_attention(torch.from_numpy(qkv).to(torch.bfloat16),
+                                torch.from_numpy(cos), torch.from_numpy(sin),
+                                heads=H, kv_len=kv_len)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, L, H * hd)
+    assert float((got.float() - ref).abs().max()) <= 1e-2
+    assert step_share(got, ref) <= ATTN_SHARE
 
 
 def test_rope_tables_match_jax():
@@ -76,6 +99,32 @@ def test_masked_pool_plain_matches_pallas(m, h, l, d):
     # a fully masked row pools the uniform mean of v, finite
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got[1], v.mean(axis=1), atol=1e-5)
+
+
+def test_masked_pool_plain_matches_pallas_bf16():
+    """TextRegion's layout in bf16: one probe query per mask, k one row per
+    head broadcast over the tokens (stride 0 on the port's side), a
+    head-transposed v, and a fully masked row."""
+    m, h, l, d = 12, 4, 300, 64
+    q, k, v, mask = _pool_inputs(9, m, h, l, d, full_masked_rows=(2,))
+    q = np.broadcast_to(q[:1], q.shape).copy()
+    kb = np.broadcast_to(k[:, :1], k.shape)
+    ref = pallas_masked_pool(
+        jnp.asarray(q).astype(jnp.bfloat16),
+        jnp.asarray(kb).astype(jnp.bfloat16),
+        jnp.asarray(v).astype(jnp.bfloat16), jnp.asarray(mask),
+        scale=d ** -0.5, interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    bf = torch.bfloat16
+    kt = torch.from_numpy(k[:, :1]).to(bf).expand(h, l, d)
+    vt = torch.from_numpy(np.ascontiguousarray(v.transpose(1, 0, 2))).to(
+        bf).transpose(0, 1)
+    got = masked_pool(torch.from_numpy(q).to(bf), kt, vt,
+                      torch.from_numpy(mask), d ** -0.5)
+    assert got.dtype == bf
+    assert np.abs(got.float().numpy() - ref).max() <= 4e-3
+    uniform = vt.float().mean(dim=1).numpy()
+    assert np.abs(got[2].float().numpy() - uniform).max() <= 4e-3
 
 
 def test_masked_pool_accepts_strided_shared_keys():
