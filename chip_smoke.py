@@ -16,11 +16,13 @@ non-zero and prints no result):
              and B9a / B9b at the 1280^2 decoder's shapes, shared and
              per-prompt image sides; B11 at Hiera-L's stage-1 and stage-3
              windows, B13 (bf16 only) at 128 and 256 prompts, B14 at its
-             gated shapes; B1-B6 and B11 in bf16 also within ATTN_SHARE
-             (B3: B3_SHARE) outputs off by more than one bf16 step, which
-             the wrong functions (B1's and B6's weights rounded once, B2's
-             rounded before normalizing, B3's and B5's left unrounded, B4's
-             attn left unrounded) must break; B3 and B4's library time is
+             gated shapes; B1-B6, B9a, B10 and B11 in bf16 also within
+             ATTN_SHARE (B3: B3_SHARE) outputs off by more than one bf16
+             step, which the wrong functions (B1's and B6's weights rounded
+             once, B2's and B10's rounded before normalizing, B3's, B5's
+             and B9a's left unrounded, B4's attn left unrounded) must
+             break; B10 in f32 also within B10_F32_TOL, which one TF32
+             product per f32 product must break; B3 and B4's library time is
              the whole function in library calls (cuBLAS projections,
              SDPA, B4's out-projection and F.layer_norm), SDPA alone beside
              it
@@ -102,11 +104,11 @@ non-zero and prints no result):
              OVO_FUSED_BLOCK=1: per embedded keyframe 24 B12a, 24 B12b, 1
              B6 and no B5 launches, B1-B4 as in the amg_slice; no host sync
              in the frame loop; a finite mIoU / mAcc; each phase's wall
-  kernel_device  B5, B6, B1, B2, B11, B3 and B4 in bf16 at the kernel
-             phase's shapes: the card's kernel time per call from a
-             torch.profiler trace, beside SDPA's (B3 / B4: beside the whole
-             function's library route) (last, since a trace slows later
-             launches)
+  kernel_device  B5, B6, B1, B2, B11, B9a, B3 and B4 in bf16 and B10 in
+             f32 at the kernel phase's shapes: the card's kernel time per
+             call from a torch.profiler trace, beside SDPA's (B3 / B4:
+             beside the whole function's library route) (last, since a
+             trace slows later launches)
   kernels    the kernels with their launch counts on the path that runs
              them: the amg_slice (B1-B6), the crop_slice (B10), the cli
              (B12a / B12b), the amg1280_slice (B9a, B9b, B8), the
@@ -160,11 +162,11 @@ REPLICA_CONFIG = {
 }
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32 (CUDA
-# core) FLOP/s, HBM bytes/s
+# core) FLOP/s, HBM bytes/s, TF32 tensor FLOP/s (half the bf16 rate)
 PEAKS = {
-    "PCIe": (756e12, 51e12, 2.0e12),
-    "NVL": (835e12, 60e12, 3.9e12),
-    "SXM": (989e12, 67e12, 3.35e12),
+    "PCIe": (756e12, 51e12, 2.0e12, 378e12),
+    "NVL": (835e12, 60e12, 3.9e12, 417.5e12),
+    "SXM": (989e12, 67e12, 3.35e12, 494.7e12),
 }
 B5_SOURCE = "ovo_tpu_torch/csrc/rope_packed_attention.cu"
 B6_SOURCE = "ovo_tpu_torch/csrc/masked_pool.cu"
@@ -486,11 +488,13 @@ def _mismatch_share(got, ref, atol=2 ** -10):
 
 
 def _report(name, dtype, err, tol, kernel, plain, library, nbytes, flops,
-            peaks, **extra):
-    """Check the error, then time kernel, plain version and library call."""
+            peaks, bound=None, **extra):
+    """Check the error, then time kernel, plain version and library call.
+    ``bound`` (ms, "bytes" or "operations") replaces the dtype's bound where
+    the kernel's route does the work in another number format."""
     if err > tol:
         raise AssertionError(f"{name} {dtype}: max_abs_err {err} > {tol}")
-    bound_ms, bound_by = _bound(nbytes, flops, dtype, peaks)
+    bound_ms, bound_by = bound or _bound(nbytes, flops, dtype, peaks)
     return dict(name=name, dtype=str(dtype)[6:], max_abs_err=err, tol=tol,
                 kernel_ms=time_ms(kernel), plain_ms=time_ms(plain),
                 library_ms=time_ms(library), bound_ms=bound_ms,
@@ -522,7 +526,8 @@ def _heads_of_packed(gen, n, L, heads, hd, dev, dtype):
 # widths and the wrong functions break it; B6's path layout (one probe
 # query, k constant over the tokens) weighs a row's tokens alike, where
 # the once-rounded weights move no output by a step, so its dense inputs
-# carry the check.
+# carry the check. B9a (its weights left unrounded: 0.13 on the CPU) and
+# B10 (B2's wrong function) hold it too since their tensor-core designs.
 ATTN_SHARE = 1e-2
 
 
@@ -655,6 +660,62 @@ def masked_pool_rounded_weights(q, k, v, key_mask, scale):
     s = torch.where(key_mask.bool()[:, None, :], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1).to(v.dtype).float()
     return torch.einsum("mhl,hld->mhd", p, v.float()).to(q.dtype)
+
+
+def cross_small_head_unrounded_weights(qq, kk, vv, heads):
+    """B9a's plain version with its normalized weights left in f32 before
+    p . v (C3's fault, found in B3): another function, which ATTN_SHARE
+    must refuse. On the CPU at the decoder's widths over 2048-6400 image
+    rows (tests/test_torch_attention_share.py) it moves 0.13 of the outputs
+    by more than a bf16 step, a reordered f32 sum of the right function
+    1.2e-4 to 1.8e-4."""
+    B = max(qq.shape[0], kk.shape[0])
+    D = qq.shape[-1]
+    dh = D // heads
+
+    def heads_of(t):
+        h = t.reshape(t.shape[0], t.shape[1], heads, dh).transpose(1, 2)
+        return h.expand((B,) + h.shape[1:]).float()
+
+    s = torch.matmul(heads_of(qq), heads_of(kk).transpose(-1, -2)) * (
+        dh ** -0.5)
+    o = torch.matmul(torch.softmax(s, dim=-1), heads_of(vv)).to(qq.dtype)
+    return o.transpose(1, 2).reshape(B, qq.shape[1], D)
+
+
+# B10 in f32 runs on the tensor cores as 3xTF32 (three TF32 products per
+# f32 product, csrc/fused_attention.cu). The 1e-4 limit of the other f32
+# rows barely tells that from one TF32 product with q, k, p and v rounded to
+# a 10-bit mantissa (fused_attention_tf32_once), which reads 2.8e-4 / 3.6e-4
+# against the plain version at the crop path's shape (16 heads x 729 x 72,
+# kv_len 729 / 629, N(0,1) inputs; a CPU run of
+# tests/test_torch_attention_share.py), where an emulated 3xTF32 product
+# reads 1.6e-6 / 1.8e-6. On an H100 (check_b10) the kernel reads 1.6e-6 at
+# batch 1 and 4.4e-6 at batch 96, the once-rounded function 5.8e-4 and
+# 7.3e-4 (its first version, which carried the mma's accumulation over the
+# whole row, read 9.3e-6 at batch 96). B10_F32_TOL sits 2.3x above the
+# kernel's largest error and 58x below the once-rounded function's
+# smallest.
+B10_F32_TOL = 1e-5
+
+
+def tf32_round(x):
+    """f32 values rounded to TF32 (10-bit mantissa, to nearest, ties away
+    from zero, as cvt.rna.tf32.f32), kept in f32."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def fused_attention_tf32_once(q, k, v, kv_len=None):
+    """B10's f32 plain version with q, k, p and v each rounded once to TF32
+    before its product (one TF32 tensor-core pass per product): another
+    function, which B10_F32_TOL must refuse."""
+    s = torch.matmul(tf32_round(q), tf32_round(k).transpose(-1, -2)) * (
+        q.shape[-1] ** -0.5)
+    if kv_len is not None and kv_len < k.shape[-2]:
+        keep = torch.arange(k.shape[-2], device=q.device) < kv_len
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    return torch.matmul(tf32_round(torch.softmax(s, dim=-1)), tf32_round(v))
 
 
 def check_b1(dev, dtype, peaks, tol):
@@ -848,8 +909,12 @@ def check_b9a(dev, dtype, peaks, tol, Bk):
     q = torch.randn((B, T, D), generator=gen, device=dev).to(dtype)
     k, v = (torch.randn((Bk, L, D), generator=gen, device=dev).to(dtype)
             for _ in range(2))
-    err = _max_err(cross_attention_small_head(q, k, v, heads),
-                   cross_attention_small_head_plain(q, k, v, heads), "B9a")
+    got = cross_attention_small_head(q, k, v, heads)
+    ref = cross_attention_small_head_plain(q, k, v, heads)
+    err = _max_err(got, ref, "B9a")
+    shares = {} if dtype != torch.bfloat16 else _shares(
+        "B9a", got, ref, cross_small_head_unrounded_weights(q, k, v, heads))
+    del got, ref
     qh, kh, vh = (_small_head_split(t, B, heads) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return _report("cross_small_head_t2i", dtype, err, tol,
@@ -858,7 +923,7 @@ def check_b9a(dev, dtype, peaks, tol, Bk):
                    lambda: sdpa(qh, kh, vh),
                    storage_bytes(q, k, v) + q.numel() * q.element_size(),
                    4.0 * B * heads * T * L * (D // heads), peaks,
-                   image_batch=Bk, shape=[B, T, L, D])
+                   image_batch=Bk, shape=[B, T, L, D], **shares)
 
 
 def check_b9b(dev, dtype, peaks, tol, Bq):
@@ -948,18 +1013,40 @@ def check_b10(dev, dtype, peaks, tol, batch):
     heads, L, hd = 16, 729, 72          # SigLIP-384: 27^2 tokens
     gen = torch.Generator(device=dev).manual_seed(10)
     qkv, (q, k, v) = _heads_of_packed(gen, batch, L, heads, hd, dev, dtype)
-    err = 0.0
+    err, extra = 0.0, {}
     for kv in (None, L - 100):
-        err = max(err, _max_err(fused_attention(q, k, v, kv_len=kv),
-                                fused_attention_plain(q, k, v, kv_len=kv),
-                                "B10"))
+        got = fused_attention(q, k, v, kv_len=kv)
+        ref = fused_attention_plain(q, k, v, kv_len=kv)
+        err = max(err, _max_err(got, ref, "B10"))
+        if dtype == torch.float32:
+            # the kernel's 3xTF32 products against one TF32 product each
+            wrong = _max_err(fused_attention_tf32_once(q, k, v, kv), ref,
+                             "B10 tf32 once")
+            if err > B10_F32_TOL or wrong <= B10_F32_TOL:
+                raise AssertionError(
+                    f"B10 f32: max_abs_err {err}, one TF32 pass {wrong}; "
+                    f"the limit B10_F32_TOL is {B10_F32_TOL}")
+            extra = dict(f32_tol=B10_F32_TOL, wrong_max_abs_err=max(
+                wrong, extra.get("wrong_max_abs_err", 0.0)))
+        else:
+            extra = _shares("B10", got, ref,
+                            windowed_attention_rounded_early(q, k, v))
+        del got, ref
+    flops = 4.0 * batch * heads * L * L * hd
+    nbytes = storage_bytes(qkv) + q.numel() * q.element_size()
+    bound = None
+    if dtype == torch.float32:
+        # the route's least time: three TF32 products per f32 product
+        t_bytes, t_ops = nbytes / peaks[2] * 1e3, 3 * flops / peaks[3] * 1e3
+        bound = (max(t_bytes, t_ops),
+                 "bytes" if t_bytes >= t_ops else "operations")
+        extra.update(bound_route="3xTF32", fma_bound_ms=flops / peaks[1] * 1e3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return _report("fused_attention", dtype, err, tol,
                    lambda: fused_attention(q, k, v),
                    lambda: fused_attention_plain(q, k, v),
-                   lambda: sdpa(q, k, v), storage_bytes(qkv) + q.numel()
-                   * q.element_size(), 4.0 * batch * heads * L * L * hd,
-                   peaks, shape=[batch, heads, L, hd])
+                   lambda: sdpa(q, k, v), nbytes, flops, peaks, bound=bound,
+                   shape=[batch, heads, L, hd], **extra)
 
 
 # B12 at PE-Core-L14-336's shapes: 7 views of 577 tokens (the TextRegion
@@ -2498,14 +2585,16 @@ def run_cli(dev, frames: int = 40) -> dict:
 
 
 def run_kernel_device(dev) -> dict:
-    """B5, B6, B1, B2, B11, B3 and B4 in bf16 at the kernel phase's shapes:
-    the card's kernel time per call beside the library's on the same
-    operands (device_ms): SDPA for B5 (on the rotated heads), B6 (the
-    path's layout, the masks as a boolean mask), B1, B2 and B11, the whole
-    function's library route for B3 and B4 (_b3_library, _b4_library)."""
-    from ovo_tpu_torch.ops.attention import (cross_i2t_tail_from_keys,
+    """B5, B6, B1, B2, B11, B9a, B3 and B4 in bf16 and B10 in f32 at the
+    kernel phase's shapes: the card's kernel time per call beside the
+    library's on the same operands (device_ms): SDPA for B5 (on the rotated
+    heads), B6 (the path's layout, the masks as a boolean mask), B1, B2,
+    B11, B9a (on the per-head views) and B10, the whole function's library
+    route for B3 and B4 (_b3_library, _b4_library)."""
+    from ovo_tpu_torch.ops.attention import (cross_attention_small_head,
+                                             cross_i2t_tail_from_keys,
                                              cross_t2i_from_keys,
-                                             flash_attention,
+                                             flash_attention, fused_attention,
                                              packed_heads_attention,
                                              rope_packed_attention,
                                              windowed_fused_attention)
@@ -2547,6 +2636,24 @@ def run_kernel_device(dev) -> dict:
             lambda q=q, k=k, v=v, h=heads: packed_heads_attention(
                 q, k, v, heads=h),
             lambda q=qh, k=kh, v=vh: sdpa(q, k, v))
+    # B10 in f32 at the crops' batch (the crop_slice's dtype), B9a at
+    # check_b9a's per-prompt shape
+    gen = torch.Generator(device=dev).manual_seed(10)
+    _, (q, k, v) = _heads_of_packed(gen, B10_BATCHES[-1], 729, 16, 72, dev,
+                                    torch.float32)
+    calls["fused_attention_f32"] = (
+        lambda q=q, k=k, v=v: fused_attention(q, k, v),
+        lambda q=q, k=k, v=v: sdpa(q, k, v))
+    B, T, L, heads, D = (B9_SHAPE[k] for k in ("B", "T", "L", "heads", "D"))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((B, T, D), generator=gen, device=dev).to(bf)
+    k, v = (torch.randn((B, L, D), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    calls["cross_small_head_t2i_kv256"] = (
+        lambda q=q, k=k, v=v: cross_attention_small_head(q, k, v, heads),
+        lambda q=_small_head_split(q, B, heads),
+        k=_small_head_split(k, B, heads), v=_small_head_split(v, B, heads):
+        sdpa(q, k, v))
     out = {tag: dict(kernel_device_ms=device_ms(kernel),
                      sdpa_device_ms=device_ms(library))
            for tag, (kernel, library) in calls.items()}
@@ -2611,11 +2718,12 @@ def _profile_summary(prof, wall: float, path: str) -> dict:
 
 
 def main(argv) -> int:
-    """No arguments: every phase. ``--profile PATH [--image-size N]``: only
-    gpu, build and the amg_slice (or, at 1280, the amg1280_slice) three
-    times: untraced, then with the card's activity traced by torch.profiler
-    (the busy share is read within that run, the kernel table written to
-    PATH), then untraced again."""
+    """No arguments: every phase. ``--profile PATH [--image-size N |
+    --crop]``: only gpu, build and the amg_slice (or, at 1280, the
+    amg1280_slice; with ``--crop`` the crop_slice) three times: untraced,
+    then with the card's activity traced by torch.profiler (the busy share
+    is read within that run, the kernel table written to PATH), then
+    untraced again."""
     profile_path = argv[argv.index("--profile") + 1] \
         if "--profile" in argv else None
     image_size = int(argv[argv.index("--image-size") + 1]) \
@@ -2650,6 +2758,8 @@ def main(argv) -> int:
         kw = dict(live=True, image_size=image_size,
                   frames=60 if image_size == 1024 else 30)
         tag = "amg_slice" if image_size == 1024 else f"amg{image_size}_slice"
+        if "--crop" in argv:
+            kw, tag = dict(frames=30, clip=CROP_CLIP), "crop_slice"
         emit(tag, **run_slice(dev, **kw)[0])
         emit("profile", **run_slice(dev, profile_path, **kw)[0])
         emit(tag, **run_slice(dev, **kw)[0])
@@ -2687,12 +2797,15 @@ def main(argv) -> int:
     # means over 6400 rows of N(0,1) values, below 1 (step 2^-8): 1e-2; B9b's
     # and B7's over 8 tokens, below 4 (step 2^-6): 3e-2. B8: a LayerNorm
     # times ~1 plus an N(0,1) bias, below 8 (step 2^-5), one f32 value
-    # rounded on both sides: 6e-2.
+    # rounded on both sides: 6e-2. B9a in bf16 also holds ATTN_SHARE, which
+    # its normalized weights left unrounded break.
     checks += [(check_b9a, f"b9a_kv{b}", 1e-2, {"Bk": b}) for b in (1, 256)]
     checks += [(check_b9b, f"b9b_q{b}", 3e-2, {"Bq": b}) for b in (1, 256)]
     checks += [(check_b7, f"b7_keys{b}", 3e-2, {"Bk": b}) for b in (1, 256)]
     checks += [(check_b8, f"b8_res{b}", 6e-2, {"Br": b}) for b in (1, 256)]
     # B10 in bf16: both sides round the normalized weights, as for B2: 1e-2
+    # and ATTN_SHARE. In f32 check_b10 also holds it to B10_F32_TOL (3xTF32
+    # on the tensor cores), which one TF32 product per f32 product breaks.
     checks += [(check_b10, f"b10_b{b}", 1e-2, {"batch": b})
                for b in B10_BATCHES]
     # B12a / B12b in bf16: the outputs are x plus the block half, below ~8

@@ -19,20 +19,40 @@
 // What bounds them on an H100: bytes. At the 1280^2 AMG shape (256
 // prompts, 8 heads x 8 tokens, L = 6400, D = 128, bf16), t2i with per-prompt
 // k, v reads 839 MB (0.25 ms at 3.35 TB/s) for 6.7 GFLOP; i2t reads 420 MB
-// of image rows and writes 420 MB (0.25 ms). Both do their products with f32
-// FMAs on the CUDA cores.
+// of image rows and writes 420 MB (0.25 ms). The second pass t2i needs
+// (below) reads k again: 1.26 GB, 0.376 ms.
 //
 // Design.
-//  t2i: one block of 256 threads per (prompt, 64 token rows), row r = h * T
-//   + t. The softmax weights are rounded after normalizing, as the
-//   reference does, so the block makes two passes over 64-row tiles of the
-//   image side: the first takes each row's max and sum (k only, an online
-//   max and rescaled sum per thread, merged over the row's four threads),
-//   the second recomputes the scores, forms p rounded into shared memory
-//   and accumulates p . v. Each thread owns one row and 16 keys of a score
-//   tile (float4 reads of its head's 16 lanes), then one row and four
-//   output columns of p . v. The k / v reads of the second pass cost a
-//   third more bytes than one online pass would.
+//  t2i in bf16 (t2i_mma_kernel, tensor cores): one block per (prompt, 16
+//   tokens), one warp a head (heads x 32 threads). The softmax weights are
+//   rounded after normalizing, as the reference does, so each row's max
+//   and sum over all L image rows come first: the block makes two passes
+//   over 64-row tiles of the prompt's image side, k alone in the first, k
+//   and v in the second, through three buffers of shared memory as bf16
+//   (cp.async, 16 bytes a copy where pointers and strides allow): two
+//   tiles load while one is multiplied, behind one block barrier a tile.
+//   A shared image side (batch 1) serves two prompts a block (a warp for
+//   each head of each prompt), so every tile is read once for both (faster
+//   than one prompt a block in a probe on an H100). Per-prompt sides keep
+//   one prompt a block: two blocks an SM fill the card; splitting each
+//   head's keys over two warps of a block (more warps an SM) was slower in
+//   the same probe. The span split of B6 would add blocks, not warps an SM:
+//   the grid already fills every SM to its shared memory. Scores are mma.sync
+//   m16n8k16: A is the head's q (16 token rows; the decoder's 8 tokens fill
+//   half of it, the other rows are zero and skipped after the product), B
+//   the head's 16 columns of k (ldmatrix), one k-step. Pass 1 keeps each
+//   row's running max and sum per lane and merges them over the row's four
+//   lanes; pass 2 recomputes the scores, forms p = bf16(exp(s - m) / l)
+//   straight into the A fragments of p . v (the score C fragments, lane for
+//   lane, as B2 does) and accumulates p . v on mma.sync in f32 (v through
+//   ldmatrix.trans). Half of each product is padding, which costs nothing
+//   here: bytes bound the kernel, not the tensor cores.
+//  t2i in f32 (t2i_kernel, FMAs; in bf16 the first design, 2.056 ms
+//   per-prompt and 1.573 ms shared at the AMG shape): one block of 256
+//   threads per (prompt, 64 rows r = h * T + t), the same two passes over
+//   64-row tiles widened to f32 in shared memory; each thread owns one row
+//   and 16 keys of a score tile, then one row and four output columns of
+//   p . v, p passing through shared memory.
 //  i2t: one block per (prompt, 128 image rows); the prompt's tokens sit in
 //   shared memory in f32. One thread per (image row, head), the rows of one
 //   head on consecutive threads, so the token reads are broadcasts: it
@@ -45,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -308,6 +330,192 @@ i2t_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// t2i in bf16 on the tensor cores (design in the header note). HALVES: 1
+// when every token fits in rows 0-7 of the 16-row tile (T <= 8), else 2.
+// PROMPTS prompts share a block, and each tile, when k and v are shared.
+constexpr int KC = 64;     // image rows per tile
+constexpr int STAGES = 3;  // tiles in shared memory: two in flight
+
+template <int HALVES, int PROMPTS>
+__global__ void __launch_bounds__(32 * DMAX / DH)
+t2i_mma_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               __nv_bfloat16* __restrict__ out, int B, int NT, int heads,
+               int L, int D, float scale, long long q_sb, long long k_sb,
+               long long v_sb, int vshift) {
+  typedef __nv_bfloat16 bf;
+  const int LDS = D + 8;  // an odd number of 16-byte units a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf* kv_s = reinterpret_cast<bf*>(smem_raw);  // STAGES x (k | v), KC x LDS
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = warp % heads;
+  const int g = lane >> 2, c = lane & 3;
+  // PROMPTS > 1 only for shared k and v (batch strides 0)
+  const int b = blockIdx.x * PROMPTS + warp / heads;
+  const bool live = b < B;  // a warp past the last prompt only loads tiles
+  const int t0 = 16 * blockIdx.y;
+  const bf* kb = k + blockIdx.x * k_sb;
+  const bf* vb = v + blockIdx.x * v_sb;
+
+  // the head's q rows t0 .. t0 + 15 as an A fragment (zero past NT)
+  uint32_t qa[4];
+  {
+    const bf* qb = q + (live ? b : 0) * q_sb + h * DH + 2 * c;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int t = t0 + g + 8 * (r & 1);
+      qa[r] = t < NT ? *reinterpret_cast<const uint32_t*>(
+                           qb + (long long)t * D + 8 * (r >> 1))
+                     : 0u;
+    }
+  }
+
+  const int n_tiles = (L + KC - 1) / KC;
+  const int steps = 2 * n_tiles;  // pass 1 (k), then pass 2 (k and v)
+  auto issue = [&](int s) {
+    const int pass2 = s >= n_tiles;
+    const int r0 = (s - pass2 * n_tiles) * KC;
+    bf* kbuf = kv_s + (s % STAGES) * 2 * KC * LDS;
+    load_rows(kbuf, LDS, kb, D, r0, KC, L, D, vshift, tid, blockDim.x);
+    if (pass2)
+      load_rows(kbuf + KC * LDS, LDS, vb, D, r0, KC, L, D, vshift, tid,
+                blockDim.x);
+  };
+
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  float o[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  // rows g and g + 8: running max and sum over this lane's columns, merged
+  // over the quad before pass 2
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rl[2] = {0.f, 0.f};
+
+  // one commit group per step, empty past the last, so that step s waits
+  // for its own group with STAGES - 2 younger ones in flight
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<STAGES - 2>();
+    // tile s landed for every thread, and every warp is done with step
+    // s - 1, whose buffer the next issue refills
+    __syncthreads();
+    if (s + STAGES - 1 < steps) issue(s + STAGES - 1);
+    cp_async_commit();
+    if (!live) continue;
+    const int pass2 = s >= n_tiles;
+    const int r0 = (s - pass2 * n_tiles) * KC;
+    const bf* kbuf = kv_s + (s % STAGES) * 2 * KC * LDS;
+
+    float sc[KC / 8][4];
+#pragma unroll
+    for (int j = 0; j < KC / 8; ++j)
+      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < KC / 16; ++jj) {
+      uint32_t kf[4];
+      ldmatrix_x4(kf, kbuf + (16 * jj + b_row) * LDS + h * DH + b_col);
+      mma_bf16(sc[2 * jj], qa, kf[0], kf[1]);
+      mma_bf16(sc[2 * jj + 1], qa, kf[2], kf[3]);
+    }
+    const bool edge = r0 + KC > L;
+#pragma unroll
+    for (int j = 0; j < KC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] *= scale;
+        if (edge && r0 + 8 * j + 2 * c + (e & 1) >= L) sc[j][e] = -1e30f;
+      }
+
+    if (!pass2) {
+#pragma unroll
+      for (int hh = 0; hh < HALVES; ++hh) {
+        float mx = m[hh];
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[j][2 * hh], sc[j][2 * hh + 1]));
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j)
+          sum += expf(sc[j][2 * hh] - mx) + expf(sc[j][2 * hh + 1] - mx);
+        l[hh] = l[hh] * expf(m[hh] - mx) + sum;
+        m[hh] = mx;
+      }
+    } else {
+      if (s == n_tiles) {
+#pragma unroll
+        for (int hh = 0; hh < HALVES; ++hh) {
+          float mx = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          float sum = l[hh] * expf(m[hh] - mx);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          m[hh] = mx;
+          l[hh] = sum;
+          rl[hh] = 1.f / sum;
+        }
+      }
+      // the reference's rounding point: normalized, then rounded
+      const bf* vbuf = kbuf + KC * LDS;
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t pa[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int hh = r & 1;
+          const float* pr = &sc[2 * kk + (r >> 1)][2 * hh];
+          pa[r] = hh < HALVES
+                      ? pack_bf16(div_by_sum(expf(pr[0] - m[hh]), l[hh], rl[hh]),
+                                  div_by_sum(expf(pr[1] - m[hh]), l[hh], rl[hh]))
+                      : 0u;
+        }
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vbuf + (16 * kk + a_row) * LDS + h * DH + a_col);
+        mma_bf16(o[0], pa, vf[0], vf[1]);
+        mma_bf16(o[1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int hh = 0; hh < HALVES; ++hh) {
+    const int t = t0 + g + 8 * hh;
+    if (t >= NT) continue;
+    bf* orow = out + ((long long)b * NT + t) * D + h * DH + 2 * c;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+          __floats2bfloat162_rn(o[n][2 * hh], o[n][2 * hh + 1]);
+  }
+}
+
+template <int PROMPTS>
+cudaError_t launch_t2i_mma(const void* q, const void* k, const void* v,
+                           void* out, int B, int NT, int heads, int L, int D,
+                           float scale, long long q_sb, long long k_sb,
+                           long long v_sb, cudaStream_t s) {
+  typedef __nv_bfloat16 bf;
+  const size_t smem = sizeof(bf) * STAGES * 2 * KC * (D + 8);
+  const void* ptrs[2] = {k, v};
+  const long long strides[3] = {k_sb, v_sb, D};
+  const int vshift = vector_shift(ptrs, 2, strides, 3, D);
+  dim3 grid((B + PROMPTS - 1) / PROMPTS, (NT + 15) / 16);
+  auto kernel = NT <= 8 ? t2i_mma_kernel<1, PROMPTS>
+                        : t2i_mma_kernel<2, PROMPTS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, 32 * heads * PROMPTS, smem, s>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<bf*>(out), B, NT, heads, L, D,
+      scale, q_sb, k_sb, v_sb, vshift);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int B, int NT, int heads, int L, int D) {
   return B < 1 || NT < 1 || NT > TMAX || heads < 1 || L < 1 ||
          D != heads * DH || D > DMAX;
@@ -327,10 +535,10 @@ extern "C" int ovo_cross_small_head_t2i(const void* q, const void* k,
                                         int dtype, void* stream) {
   if (bad_shape(B, NT, heads, L, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * (2 * BK * (D + 4) + RB * LDP);
-  dim3 grid(B, (heads * NT + RB - 1) / RB);
   cudaError_t err;
   if (dtype == 0) {
+    const size_t smem = sizeof(float) * (2 * BK * (D + 4) + RB * LDP);
+    dim3 grid(B, (heads * NT + RB - 1) / RB);
     err = cudaFuncSetAttribute(t2i_kernel<float>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
@@ -340,15 +548,12 @@ extern "C" int ovo_cross_small_head_t2i(const void* q, const void* k,
         static_cast<const float*>(v), static_cast<float*>(out), NT, heads, L,
         D, scale, q_sb, k_sb, v_sb);
   } else if (dtype == 1) {
-    typedef __nv_bfloat16 bf;
-    err = cudaFuncSetAttribute(t2i_kernel<bf>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    t2i_kernel<bf><<<grid, THREADS, smem, s>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k),
-        static_cast<const bf*>(v), static_cast<bf*>(out), NT, heads, L, D,
-        scale, q_sb, k_sb, v_sb);
+    // a shared image side: two prompts a block read each tile once
+    if (k_sb == 0 && v_sb == 0 && 2 * heads <= DMAX / DH)
+      return (int)launch_t2i_mma<2>(q, k, v, out, B, NT, heads, L, D, scale,
+                                    q_sb, k_sb, v_sb, s);
+    return (int)launch_t2i_mma<1>(q, k, v, out, B, NT, heads, L, D, scale,
+                                  q_sb, k_sb, v_sb, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -26,7 +26,8 @@ tensor, or raises on what the kernel does not take; on a CPU tensor it runs
 its ``*_plain`` version beside it, the same function in PyTorch ops with the
 reference's roundings. The TPU's routing rules (VMEM budgets, sublane pads)
 do not carry over: the CUDA kernels take any length and head size up to
-128 natively, so the wrappers pad nothing.
+128 natively, so the wrappers pad nothing but B10's bf16 operands at a head
+size B2's device code is not built for.
 """
 from __future__ import annotations
 
@@ -334,7 +335,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_len: Optional[int] = None) -> torch.Tensor:
     """Whole-KV attention (B10): (B, H, Lq, D) x (B, H, Lk, D), Lk at most
     1024, head size up to 128, any batch. Keys at or past ``kv_len``
-    (default Lk) are masked. Strides and output as :func:`flash_attention`.
+    (default Lk) are masked. Strides and output as :func:`flash_attention`
+    (in bf16, a head size outside ``WINDOWED_HEAD_DIMS`` is padded with zero
+    columns, a copy, and the output is a view of the padded result).
 
     CPU tensors run :func:`fused_attention_plain`; CUDA tensors launch
     kernel B10 (``csrc/fused_attention.cu``) or raise."""
@@ -346,8 +349,15 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"fused_attention takes Lk <= {FUSED_MAX_LEN}, head "
                          f"size <= {MAX_HEAD_DIM} and B*H <= 65535; got "
                          f"Lk={Lk}, D={D}, B*H={B * H}")
-    return _launch_self("fused_attention", "ovo_fused_attention", q, k, v, kv,
-                        scale)
+    pad = 0
+    if q.dtype == torch.bfloat16 and D not in WINDOWED_HEAD_DIMS:
+        # bf16 runs B2's device code, built for its head sizes: zero columns
+        # add nothing to q . k, and the output's extra columns are dropped
+        pad = min(d for d in WINDOWED_HEAD_DIMS if d > D) - D
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    out = _launch_self("fused_attention", "ovo_fused_attention", q, k, v, kv,
+                       scale)
+    return out[..., :D] if pad else out
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

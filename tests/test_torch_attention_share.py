@@ -1,7 +1,8 @@
 """The share statistic that chip_smoke.py and the card tests hold kernels
 B1 (flash_attention), B2 (windowed_fused_attention), B11
 (packed_heads_attention), B3 (cross_t2i), B4 (cross_i2t_tail), B5
-(rope_packed_attention) and B6 (masked_pool) to in bf16, beside their max-abs limits: the share
+(rope_packed_attention), B6 (masked_pool), B9a (cross_small_head t2i) and
+B10 (fused_attention) to in bf16, beside their max-abs limits: the share
 of outputs that differ from the plain version by more than one bf16 step
 at the plain output's magnitude, at most ``ATTN_SHARE`` (``B3_SHARE`` for
 B3, whose output dilutes a weight's rounding over dk products).
@@ -12,8 +13,14 @@ sum of the right function (keys, or B4's tokens, permuted), and B1's p_hi
 the functions the kernels must not compute break it. Those are B1 with its
 weights rounded once to bf16 (which the max-abs limit alone passes), B2 /
 B11 with exp(s - m) rounded before it is normalized, B3 and B5 with their
-normalized weights left unrounded, B4 with attn left unrounded, and B6
-with its f32 weights rounded once (the reference's XLA route).
+normalized weights left unrounded, B4 with attn left unrounded, B6
+with its f32 weights rounded once (the reference's XLA route), and B9a with
+its normalized weights left unrounded.
+
+B10 in f32 runs as 3xTF32 on the tensor cores: its limit
+``chip_smoke.B10_F32_TOL`` passes an emulated 3xTF32 product and refuses
+one TF32 product per f32 product, which the 1e-4 limit of the other f32
+kernels would not.
 """
 import numpy as np
 import pytest
@@ -223,3 +230,70 @@ def test_masked_pool_share_tells_rounded_weights_apart(layout):
         assert share(wrong, ref) <= chip_smoke.ATTN_SHARE
     else:
         assert share(wrong, ref) > chip_smoke.ATTN_SHARE
+
+
+@pytest.mark.parametrize("B,Bk,L", [(8, 8, 6400), (16, 1, 4096)])
+def test_cross_small_head_share_tells_unrounded_weights_apart(B, Bk, L):
+    """B9a at the 1280^2 decoder's widths (8 heads of 16, 8 tokens) over
+    thousands of image rows, per-prompt and shared: a reordered f32 sum of
+    the right function moved 1.8e-4 of the outputs by more than a step,
+    the unrounded weights 0.13 (a CPU run at B 16 / 32, L 6400), which the
+    max-abs limit (1e-2) alone passes."""
+    heads, T, D = 8, 8, 128
+    rng = np.random.default_rng(70 + Bk)
+    q, k, v = _bf16(rng, B, T, D), _bf16(rng, Bk, L, D), _bf16(rng, Bk, L, D)
+    ref = A.cross_attention_small_head_plain(q, k, v, heads)
+    perm = torch.from_numpy(rng.permutation(L))
+    reordered = A.cross_attention_small_head_plain(q, k[:, perm], v[:, perm],
+                                                   heads)
+    wrong = chip_smoke.cross_small_head_unrounded_weights(q, k, v, heads)
+    share = chip_smoke.step_share
+    assert share(reordered, ref) <= chip_smoke.ATTN_SHARE
+    assert float((wrong.float() - ref.float()).abs().max()) <= 1e-2
+    assert share(wrong, ref) > chip_smoke.ATTN_SHARE
+
+
+def _tf32x3_product(a, b):
+    """a @ b as the kernel's tensor cores form it: each operand split into
+    a TF32 hi part and a TF32 lo part, hi.hi + (hi.lo + lo.hi)."""
+    def split(x):
+        hi = chip_smoke.tf32_round(x)
+        return hi, chip_smoke.tf32_round(x - hi)
+
+    (ah, al), (bh, bl) = split(a), split(b)
+    return torch.matmul(ah, bh) + (torch.matmul(ah, bl) + torch.matmul(al, bh))
+
+
+def _fused_tf32x3(q, k, v, kv_len):
+    s = _tf32x3_product(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    keep = torch.arange(k.shape[-2]) < kv_len
+    s = torch.where(keep, s, torch.full_like(s, -1e30))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return _tf32x3_product(e, v) / e.sum(dim=-1, keepdim=True)
+
+
+def test_tf32_round_keeps_ten_mantissa_bits():
+    """To nearest, ties away from zero (cvt.rna), the low 13 bits zero."""
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 - 2.0 ** -20,
+                      -(1.0 + 3 * 2.0 ** -11), 3.0])
+    got = chip_smoke.tf32_round(x)
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0, -(1.0 + 2 * 2.0 ** -10), 3.0])
+    assert torch.equal(got, want)
+    assert not (got.view(torch.int32) & 0x1FFF).any()
+
+
+@pytest.mark.parametrize("kv_len", [729, 629])
+def test_b10_f32_limit_tells_one_tf32_pass_apart(kv_len):
+    """B10 at the crop path's shape (one SigLIP-384 view: 16 heads x 729
+    tokens x 72, N(0,1)): an emulated 3xTF32 kernel read 1.6e-6 / 1.8e-6
+    against the plain f32 version (kv_len 729 / 629, a CPU run), one TF32
+    product per f32 product 2.8e-4 / 3.6e-4: B10_F32_TOL (1e-5) passes the
+    one and refuses the other."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 16, 729, 72)).astype(
+        np.float32)) for _ in range(3))
+    ref = A.fused_attention_plain(q, k, v, kv_len=kv_len)
+    x3 = _fused_tf32x3(q, k, v, kv_len)
+    once = chip_smoke.fused_attention_tf32_once(q, k, v, kv_len)
+    assert float((x3 - ref).abs().max()) <= chip_smoke.B10_F32_TOL / 4
+    assert float((once - ref).abs().max()) > 20 * chip_smoke.B10_F32_TOL

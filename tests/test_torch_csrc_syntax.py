@@ -60,6 +60,7 @@ inline float __low2float(__nv_bfloat162) { return 0; }
 inline float __high2float(__nv_bfloat162) { return 0; }
 inline size_t __cvta_generic_to_shared(const void*) { return 0; }
 inline float __uint_as_float(unsigned) { return 0; }
+inline unsigned __float_as_uint(float) { return 0; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }

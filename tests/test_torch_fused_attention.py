@@ -65,6 +65,24 @@ def test_fused_takes_strided_head_views():
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("hd,padded", [(40, 48), (20, 32), (33, 48)])
+def test_fused_zero_columns_change_nothing(hd, padded):
+    """B10 in bf16 pads a head size B2's device code is not built for with
+    zero columns (``fused_attention`` on the card): the padded operands
+    give the same first ``hd`` output columns, bit for bit, and zeros past
+    them."""
+    assert padded == min(d for d in A.WINDOWED_HEAD_DIMS if d > hd)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(hd, (2, 3, 300, hd)))
+    scale = hd ** -0.5
+    ref = A.fused_attention_plain(q, k, v, scale=scale, kv_len=289)
+    pq, pk, pv = (torch.nn.functional.pad(t, (0, padded - hd))
+                  for t in (q, k, v))
+    got = A.fused_attention_plain(pq, pk, pv, scale=scale, kv_len=289)
+    assert torch.equal(got[..., :hd], ref)
+    assert not got[..., hd:].float().any()
+
+
 def test_dot_product_attention_routes_match_xla():
     """Every route of the port's dispatcher computes the reference's
     ``xla_attention``: B10, B2 and B1's plain versions, and the plain route
