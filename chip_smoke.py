@@ -16,16 +16,18 @@ non-zero and prints no result):
              and B9a / B9b at the 1280^2 decoder's shapes, shared and
              per-prompt image sides; B11 at Hiera-L's stage-1 and stage-3
              windows, B13 (bf16 only) at 128 and 256 prompts, B14 at its
-             gated shapes; B1-B6, B9a, B10 and B11 in bf16 also within
-             ATTN_SHARE (B3: B3_SHARE) outputs off by more than one bf16
-             step, which the wrong functions (B1's and B6's weights rounded
-             once, B2's and B10's rounded before normalizing, B3's, B5's
-             and B9a's left unrounded, B4's attn left unrounded) must
-             break; B10 in f32 also within B10_F32_TOL, which one TF32
-             product per f32 product must break; B3 and B4's library time is
-             the whole function in library calls (cuBLAS projections,
-             SDPA, B4's out-projection and F.layer_norm), SDPA alone beside
-             it
+             gated shapes; B1-B6, B9a, B10, B11, B12a and B12b in bf16 also
+             within ATTN_SHARE (B3: B3_SHARE, B12: B12_SHARE) outputs off
+             by more than one bf16 step, which the wrong functions (B1's
+             and B6's weights rounded once, B2's and B10's rounded before
+             normalizing, B3's, B5's and B9a's left unrounded, B4's attn
+             left unrounded, B12b's h left in f32 or its gelu on erf,
+             B12a's q and k rounded before RoPE or its weights left
+             unrounded) must break; B10 in f32 also within B10_F32_TOL,
+             which one TF32 product per f32 product must break; B3 and
+             B4's library time is the whole function in library calls
+             (cuBLAS projections, SDPA, B4's out-projection and
+             F.layer_norm), SDPA alone beside it
   reference  the online pipeline on a small synthetic scene with the tiny-pe
              card, on the card (kernels) and on the CPU (plain versions):
              equal point map and instances, descriptors within cosine 1e-4
@@ -104,11 +106,12 @@ non-zero and prints no result):
              OVO_FUSED_BLOCK=1: per embedded keyframe 24 B12a, 24 B12b, 1
              B6 and no B5 launches, B1-B4 as in the amg_slice; no host sync
              in the frame loop; a finite mIoU / mAcc; each phase's wall
-  kernel_device  B5, B6, B1, B2, B11, B9a, B3 and B4 in bf16 and B10 in
-             f32 at the kernel phase's shapes: the card's kernel time per
-             call from a torch.profiler trace, beside SDPA's (B3 / B4:
-             beside the whole function's library route) (last, since a
-             trace slows later launches)
+  kernel_device  B5, B6, B1, B2, B11, B9a, B3, B4, B12a and B12b in bf16
+             and B10 in f32 at the kernel phase's shapes: the card's kernel
+             time per call from a torch.profiler trace, beside SDPA's (B3 /
+             B4: beside the whole function's library route; B12a / B12b:
+             beside the default route's block half) (last, since a trace
+             slows later launches)
   kernels    the kernels with their launch counts on the path that runs
              them: the amg_slice (B1-B6), the crop_slice (B10), the cli
              (B12a / B12b), the amg1280_slice (B9a, B9b, B8), the
@@ -117,6 +120,13 @@ non-zero and prints no result):
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
+
+    python3 chip_smoke.py --profile PATH [--image-size 1280 | --crop | --cli]
+
+runs only the amg_slice (the amg1280_slice, the crop_slice, the cli) three
+times: untraced, traced (the card's activity, torch.profiler; the kernel
+table written to PATH; the cli's --run loop only, with B12's device time per
+embedded keyframe), untraced again.
 """
 from __future__ import annotations
 
@@ -1057,6 +1067,94 @@ B12_SHAPE = dict(B=7, L=577, D=1024, heads=16, hidden=4096)
 B12_SMALL = dict(B=2, L=150, D=64, heads=4, hidden=256, l_real=131)
 
 
+# B12a / B12b in bf16: the share of outputs off by more than one bf16 step
+# (step_share). The outputs are x plus the block half, up to ~8, so the
+# max-abs limit (6e-2) passes functions that round at another place; the
+# share sees them at the outputs of small magnitude, where a step is small.
+# The wrong functions: B12b with h left in f32 into the proj, or its bf16
+# gelu computed with erf (the f32 rule); B12a with q and k rounded to bf16
+# before the f32 RoPE, or its weights p left unrounded. On an H100 at the
+# path's shape (check_b12a / check_b12b, PERF.md PR 11) they read 0.075,
+# 0.040, 0.038 and 0.021, the kernels 4.5e-3 (B12a) and 1.9e-3 (B12b):
+# B12_SHARE sits 2.2x above the kernels and 2.1x below the smallest wrong
+# function. B12a's qkv GEMM sums per 64-deep k step for this reason: summed
+# by the mma over all of D, its accumulation without rounding to nearest
+# moved more outputs by a step than two plain evaluations (card and CPU)
+# differ in. On the CPU (tests/test_torch_fused_block_share.py) the right
+# function summed as a model of the mma chains stays under it and the
+# wrong functions break it.
+B12_SHARE = 1e-2
+
+
+def fused_mlp_block_variant(x, fc_w, fc_b, proj_w, proj_b, ln_scale,
+                            ln_bias, *, act="gelu", chunk=1024,
+                            h_f32=False, erf_gelu=False):
+    """B12b's plain version (fused_block.fused_mlp_block_plain's op order)
+    with one of its wrong functions: ``h_f32`` leaves h in f32 into the
+    proj, ``erf_gelu`` takes the erf gelu in bf16. B12_SHARE must refuse
+    each."""
+    from ovo_tpu_torch.ops.fused_block import _act, _ln_rows
+
+    dt = x.dtype
+    hidden = fc_w.shape[1]
+    lnx = _ln_rows(x, ln_scale, ln_bias).float()
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for c0 in range(0, hidden, chunk):
+        h = lnx @ fc_w[:, c0:c0 + chunk].float() + fc_b[c0:c0 + chunk].float()
+        h = torch.nn.functional.gelu(h) if erf_gelu else _act(h, act, dt)
+        if not h_f32:
+            h = h.to(dt)
+        acc = acc + h.float() @ proj_w[c0:c0 + chunk].float()
+    return (x.float() + acc + proj_b.float()).to(dt)
+
+
+def fused_attn_block_variant(x, w_heads, b_heads, ow_heads, out_b, ln_scale,
+                             ln_bias, cos, sin, *, n_heads, L_real, causal,
+                             use_rope, qk_early=False, p_f32=False):
+    """B12a's plain version (fused_block.fused_attn_block_plain's op order)
+    with one of its wrong functions: ``qk_early`` rounds q and k to the
+    dtype before the f32 RoPE, ``p_f32`` leaves the weights unrounded.
+    B12_SHARE must refuse each."""
+    from ovo_tpu_torch.ops.fused_block import _ln_rows, _rot
+
+    dt = x.dtype
+    L = x.shape[-2]
+    hd = w_heads.shape[-1] // 3
+    lnx = _ln_rows(x, ln_scale, ln_bias).float()
+    col = torch.arange(L, device=x.device)
+    mask = (col >= L_real)[None, :]
+    if causal:
+        mask = mask | (col[None, :] > col[:, None])
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for h in range(n_heads):
+        qkv = lnx @ w_heads[h].float() + b_heads[h].float()
+        q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+        if qk_early:
+            q, k = q.to(dt).float(), k.to(dt).float()
+        if use_rope:
+            q, k = _rot(q, cos, sin), _rot(k, cos, sin)
+        s = (q.to(dt).float() @ k.to(dt).float().transpose(-1, -2)) \
+            * hd ** -0.5
+        s = torch.where(mask, torch.full_like(s, -1e30), s)
+        p = torch.softmax(s, dim=-1)
+        if not p_f32:
+            p = p.to(dt)
+        oh = (p.float() @ v.to(dt).float()).to(dt)
+        acc = acc + oh.float() @ ow_heads[h].float()
+    return (x.float() + acc + out_b.float()).to(dt)
+
+
+def _b12_shares(name, got, ref, wrongs):
+    """The kernel's step share and each wrong function's; raises unless
+    B12_SHARE passes the kernel and refuses every wrong function."""
+    out = {}
+    for tag, wrong in wrongs.items():
+        r = _shares(f"{name} ({tag})", got, ref, wrong, limit=B12_SHARE)
+        out[f"wrong_step_share_{tag}"] = r.pop("wrong_step_share")
+        out.update(r)
+    return out
+
+
 def _b12_weights(gen, dev, dtype, D, heads, hidden):
     """Block weights with the init's stds and non-zero biases and
     LayerNorm affines (f32), in the kernels' per-head layout."""
@@ -1103,9 +1201,53 @@ def _default_route_block(w, heads, dtype, dev):
     return blk
 
 
-def check_b12a(dev, dtype, peaks, tol):
+def _b12a_path(dev, dtype, gen):
+    """B12a's inputs at the path's shape (7 PE views, RoPE on, every key
+    real) and the default route on the same input and weights: LayerNorm,
+    the qkv GEMM, B5 (the tower pads 577 -> 584 tokens, n_valid 577), the
+    out GEMM, the residual."""
     from ovo_tpu_torch.models.layers import multi_head_attention, rope2d_freqs
-    from ovo_tpu_torch.ops.fused_block import (fused_attn_block,
+
+    B, L, D, heads = (B12_SHAPE[k] for k in ("B", "L", "D", "heads"))
+    hd = D // heads
+    w = _b12_weights(gen, dev, dtype, D, heads, B12_SHAPE["hidden"])
+    x = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
+    cos, sin = rope2d_freqs(24, 24, hd, n_prefix=1, device=dev)
+    args = (x, w["w_heads"], w["b_heads"], w["ow_heads"], w["ob"], w["ln1_s"],
+            w["ln1_b"], cos, sin)
+    kw = dict(n_heads=heads, L_real=L, causal=False, use_rope=True)
+    blk = _default_route_block(w, heads, dtype, dev)
+    Lp = -(-L // 8) * 8
+    xp = torch.cat([x, x.new_zeros((B, Lp - L, D))], dim=1)
+    pad = cos.new_zeros((Lp - L, hd // 2))
+    rope_p = (torch.cat([cos, pad]), torch.cat([sin, pad]))
+
+    def default_route():
+        return xp + multi_head_attention(blk.attn, blk.ln1(xp), heads,
+                                         rope=rope_p, n_valid=L)
+
+    return args, kw, default_route
+
+
+def _b12b_path(dev, dtype, gen):
+    """B12b's inputs at the path's shape (7 PE views, hidden 4096 in chunks
+    of 512, gelu) and the default route on the same input and weights:
+    LayerNorm, the fc GEMM, gelu, the proj GEMM, the residual."""
+    from ovo_tpu_torch.models.layers import mlp
+
+    B, L, D, hidden = (B12_SHAPE[k] for k in ("B", "L", "D", "hidden"))
+    w = _b12_weights(gen, dev, dtype, D, B12_SHAPE["heads"], hidden)
+    x = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
+    args = (x, w["fc_w"], w["fc_b"], w["proj_w"], w["proj_b"], w["ln2_s"],
+            w["ln2_b"])
+    blk = _default_route_block(w, B12_SHAPE["heads"], dtype, dev)
+    return args, dict(act="gelu", chunk=512), \
+        lambda: x + mlp(blk.mlp, blk.ln2(x))
+
+
+def check_b12a(dev, dtype, peaks, tol):
+    from ovo_tpu_torch.ops.fused_block import (attn_block_routes,
+                                               fused_attn_block,
                                                fused_attn_block_plain)
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -1122,28 +1264,19 @@ def check_b12a(dev, dtype, peaks, tol):
               use_rope=False)
     err = max(err, _max_err(fused_attn_block(*args, **kw),
                             fused_attn_block_plain(*args, **kw), "B12a"))
-    # the path's shape: 7 PE views, RoPE on, every key real
+    args, kw, default_route = _b12a_path(dev, dtype, gen)
+    got, ref = fused_attn_block(*args, **kw), fused_attn_block_plain(*args,
+                                                                     **kw)
+    err = max(err, _max_err(got, ref, "B12a"))
+    shares = {}
+    if dtype == torch.bfloat16:
+        shares = _b12_shares("B12a", got, ref, {
+            tag: fused_attn_block_variant(*args, **kw, **{tag: True})
+            for tag in ("qk_early", "p_f32")})
+    del got, ref
     B, L, D, heads = (B12_SHAPE[k] for k in ("B", "L", "D", "heads"))
     hd = D // heads
-    w = _b12_weights(gen, dev, dtype, D, heads, B12_SHAPE["hidden"])
-    x = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
-    cos, sin = rope2d_freqs(24, 24, hd, n_prefix=1, device=dev)
-    args = (x, w["w_heads"], w["b_heads"], w["ow_heads"], w["ob"], w["ln1_s"],
-            w["ln1_b"], cos, sin)
-    kw = dict(n_heads=heads, L_real=L, causal=False, use_rope=True)
-    err = max(err, _max_err(fused_attn_block(*args, **kw),
-                            fused_attn_block_plain(*args, **kw), "B12a"))
-    # the default route: the tower pads 577 -> 584 for B5 (n_valid 577)
-    blk = _default_route_block(w, heads, dtype, dev)
-    Lp = -(-L // 8) * 8
-    xp = torch.cat([x, x.new_zeros((B, Lp - L, D))], dim=1)
-    pad = cos.new_zeros((Lp - L, hd // 2))
-    rope_p = (torch.cat([cos, pad]), torch.cat([sin, pad]))
-
-    def default_route():
-        return xp + multi_head_attention(blk.attn, blk.ln1(xp), heads,
-                                         rope=rope_p, n_valid=L)
-
+    x = args[0]
     nbytes = (storage_bytes(*args) + x.numel() * x.element_size())
     flops = B * (2.0 * L * D * 3 * D + 4.0 * heads * L * L * hd
                  + 2.0 * L * D * D)
@@ -1153,35 +1286,52 @@ def check_b12a(dev, dtype, peaks, tol):
                    default_route, nbytes, flops, peaks,
                    yardstick="default route: LayerNorm, qkv GEMM, B5, "
                            "out GEMM, residual",
-                   shape=[B, L, D, heads])
+                   shape=[B, L, D, heads],
+                   routes=attn_block_routes(x, args[1], args[3],
+                                            n_heads=heads, causal=False),
+                   **shares)
 
 
 def check_b12b(dev, dtype, peaks, tol):
-    from ovo_tpu_torch.models.layers import mlp
     from ovo_tpu_torch.ops.fused_block import (fused_mlp_block,
-                                               fused_mlp_block_plain)
+                                               fused_mlp_block_plain,
+                                               mlp_block_routes)
 
     gen = torch.Generator(device=dev).manual_seed(13)
-    err = 0.0
-    for shape, act in ((B12_SMALL, "quick_gelu"), (B12_SHAPE, "gelu")):
-        B, L, D, hidden = (shape[k] for k in ("B", "L", "D", "hidden"))
-        w = _b12_weights(gen, dev, dtype, D, shape["heads"], hidden)
-        x = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
-        args = (x, w["fc_w"], w["fc_b"], w["proj_w"], w["proj_b"],
-                w["ln2_s"], w["ln2_b"])
-        kw = dict(act=act, chunk=min(512, hidden))
-        err = max(err, _max_err(fused_mlp_block(*args, **kw),
-                                fused_mlp_block_plain(*args, **kw), "B12b"))
-    blk = _default_route_block(w, shape["heads"], dtype, dev)
+    # the small case: quick_gelu, hidden 256 in one chunk
+    s = B12_SMALL
+    w = _b12_weights(gen, dev, dtype, s["D"], s["heads"], s["hidden"])
+    x = torch.randn((s["B"], s["L"], s["D"]), generator=gen,
+                    device=dev).to(dtype)
+    args = (x, w["fc_w"], w["fc_b"], w["proj_w"], w["proj_b"], w["ln2_s"],
+            w["ln2_b"])
+    kw = dict(act="quick_gelu", chunk=s["hidden"])
+    err = _max_err(fused_mlp_block(*args, **kw),
+                   fused_mlp_block_plain(*args, **kw), "B12b")
+    args, kw, default_route = _b12b_path(dev, dtype, gen)
+    got = fused_mlp_block(*args, **kw)
+    ref = fused_mlp_block_plain(*args, **kw)
+    err = max(err, _max_err(got, ref, "B12b"))
+    shares = {}
+    if dtype == torch.bfloat16:
+        shares = _b12_shares("B12b", got, ref, {
+            tag: fused_mlp_block_variant(*args, **kw, **{tag: True})
+            for tag in ("h_f32", "erf_gelu")})
+    del got, ref
+    B, L, D, hidden = (B12_SHAPE[k] for k in ("B", "L", "D", "hidden"))
+    x = args[0]
     nbytes = storage_bytes(*args) + x.numel() * x.element_size()
     flops = 4.0 * B * L * D * hidden
     return _report("fused_mlp_block", dtype, err, tol,
                    lambda: fused_mlp_block(*args, **kw),
                    lambda: fused_mlp_block_plain(*args, **kw),
-                   lambda: x + mlp(blk.mlp, blk.ln2(x)), nbytes, flops, peaks,
+                   default_route, nbytes, flops, peaks,
                    yardstick="default route: LayerNorm, fc GEMM, gelu, "
                            "proj GEMM, residual",
-                   shape=[B, L, D, hidden])
+                   shape=[B, L, D, hidden],
+                   routes=mlp_block_routes(x, args[1], args[3],
+                                           kw["chunk"]),
+                   **shares)
 
 
 def check_b14(dev, dtype, peaks, tol, which):
@@ -2455,6 +2605,9 @@ class RunRecorder:
     every synchronizing CUDA call with its source line; the frame loop ends
     where the deferred-descriptor drain starts."""
 
+    def __init__(self, prof=None):
+        self.prof = prof  # a torch.profiler context around the timed run
+
     def __enter__(self):
         from ovo_tpu_torch.mapping.pipeline import OVOSemMap
 
@@ -2472,6 +2625,8 @@ class RunRecorder:
 
             sem_map.ovo.complete_semantic_info = marked_drain
             torch.cuda.synchronize()
+            if rec.prof is not None:
+                rec.prof.__enter__()
             t0 = time.time()
             torch.cuda.set_sync_debug_mode("warn")
             try:
@@ -2483,6 +2638,8 @@ class RunRecorder:
                 torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
             rec.wall = time.time() - t0
+            if rec.prof is not None:
+                rec.prof.__exit__(None, None, None)
 
         OVOSemMap.run = run
         return self
@@ -2496,12 +2653,15 @@ class RunRecorder:
                 for w in caught if "synchroniz" in str(w.message)]
 
 
-def run_cli(dev, frames: int = 40) -> dict:
+def run_cli(dev, frames: int = 40, profile_path=None) -> dict:
     """The user's command at full width: ``python -m ovo_tpu_torch.run_eval
     --run --segment --eval`` (called as ``main``) on a 680x1200 PNG scene
     of ``frames`` frames, OVO_FUSED_BLOCK=1, a copied config tree; the wall
     of each phase, launches per embedded keyframe, host syncs in the frame
-    loop (none allowed), a finite mIoU / mAcc."""
+    loop (none allowed), a finite mIoU / mAcc. With ``profile_path``, the
+    card's activity in ``--run``'s loop is traced (_profile_summary, the
+    kernel table written there) and B12's device time per embedded
+    keyframe read from it."""
     import os
 
     from ovo_tpu_torch.config import assemble_run_config
@@ -2532,7 +2692,8 @@ def run_cli(dev, frames: int = 40) -> dict:
                 torch.cuda.reset_peak_memory_stats(dev)
                 cuda_build.reset_launch_counts()
                 t0 = time.time()
-                with RunRecorder() as rec:
+                prof = _profiler() if profile_path else None
+                with RunRecorder(prof) as rec:
                     _cli(_cli_argv(scene, "cli", "run"), root)
                 t_run = time.time() - t0
                 counts = cuda_build.launch_counts()
@@ -2579,18 +2740,30 @@ def run_cli(dev, frames: int = 40) -> dict:
                              "rope_packed_attention", "masked_pool")},
                 host_syncs=len(rec.syncs(in_loop=False)),
                 host_syncs_in_loop=len(loop_syncs), launches=counts)
+    if prof is not None:
+        record.update(_profile_summary(prof, rec.wall, profile_path))
+        b12 = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type.name == "CUDA" and _is_b12_kernel(e.name))
+        record["b12_device_ms_per_embedded_keyframe"] = b12 / 1e3 / n_emb
     if not (np.isfinite(metrics["iou"]) and np.isfinite(metrics["acc"])):
         raise AssertionError(f"cli: metrics not finite: {record}")
     return record
 
 
+def _is_b12_kernel(name: str) -> bool:
+    """B12a / B12b's device code on the cli path (bf16, hd 64, no causal
+    block, no B5 launch): block_common.cuh's kernels and B12a's attention."""
+    return "ovo_block::" in name or "two_pass_mma_kernel" in name
+
+
 def run_kernel_device(dev) -> dict:
-    """B5, B6, B1, B2, B11, B9a, B3 and B4 in bf16 and B10 in f32 at the
-    kernel phase's shapes: the card's kernel time per call beside the
-    library's on the same operands (device_ms): SDPA for B5 (on the rotated
-    heads), B6 (the path's layout, the masks as a boolean mask), B1, B2,
-    B11, B9a (on the per-head views) and B10, the whole function's library
-    route for B3 and B4 (_b3_library, _b4_library)."""
+    """B5, B6, B1, B2, B11, B9a, B3, B4, B12a and B12b in bf16 and B10 in
+    f32 at the kernel phase's shapes: the card's kernel time per call beside
+    the library's on the same operands (device_ms): SDPA for B5 (on the
+    rotated heads), B6 (the path's layout, the masks as a boolean mask), B1,
+    B2, B11, B9a (on the per-head views) and B10, the whole function's
+    library route for B3 and B4 (_b3_library, _b4_library), the default
+    route's block half for B12a and B12b."""
     from ovo_tpu_torch.ops.attention import (cross_attention_small_head,
                                              cross_i2t_tail_from_keys,
                                              cross_t2i_from_keys,
@@ -2661,6 +2834,21 @@ def run_kernel_device(dev) -> dict:
     parts = {}
     device_ms(calls["rope_packed_attention"][0], by_name=parts)
     out["rope_packed_attention"]["kernel_device_ms_by_name"] = parts
+    # B12a / B12b at the path's shape beside the default route's block half
+    # on the same input and weights, each launch apart
+    from ovo_tpu_torch.ops.fused_block import fused_attn_block, fused_mlp_block
+
+    for name, fn, path in (("fused_attn_block", fused_attn_block, _b12a_path),
+                           ("fused_mlp_block", fused_mlp_block, _b12b_path)):
+        args, kw, default_route = path(
+            dev, bf, torch.Generator(device=dev).manual_seed(12))
+        parts = {}
+        out[name] = dict(
+            kernel_device_ms=device_ms(lambda: fn(*args, **kw),
+                                       by_name=parts),
+            kernel_device_ms_by_name=parts,
+            default_route_device_ms=device_ms(default_route))
+        del args, kw, default_route
     heads = 8
     for bk in (256, 1):
         x = _cross_inputs(dev, bf, bk)
@@ -2719,11 +2907,11 @@ def _profile_summary(prof, wall: float, path: str) -> dict:
 
 def main(argv) -> int:
     """No arguments: every phase. ``--profile PATH [--image-size N |
-    --crop]``: only gpu, build and the amg_slice (or, at 1280, the
-    amg1280_slice; with ``--crop`` the crop_slice) three times: untraced,
-    then with the card's activity traced by torch.profiler (the busy share
-    is read within that run, the kernel table written to PATH), then
-    untraced again."""
+    --crop | --cli]``: only gpu, build and the amg_slice (or, at 1280, the
+    amg1280_slice; with ``--crop`` the crop_slice; with ``--cli`` the cli,
+    its ``--run`` loop traced) three times: untraced, then with the card's
+    activity traced by torch.profiler (the busy share is read within that
+    run, the kernel table written to PATH), then untraced again."""
     profile_path = argv[argv.index("--profile") + 1] \
         if "--profile" in argv else None
     image_size = int(argv[argv.index("--image-size") + 1]) \
@@ -2752,6 +2940,12 @@ def main(argv) -> int:
         cuda_build.library(k)
     emit("build", seconds=time.time() - t0, kernels=list(cuda_build.KERNELS))
 
+    if profile_path and "--cli" in argv:
+        # as below: untraced, traced (the --run loop), untraced again
+        emit("cli", **run_cli(dev))
+        emit("profile", **run_cli(dev, profile_path=profile_path))
+        emit("cli", **run_cli(dev))
+        return 0
     if profile_path:
         # the first run carries the process's one-time costs; the traced
         # run's wall is read against the untraced run after it

@@ -1,10 +1,11 @@
 // Shared pieces of the whole-block kernels B12a (fused_attn_block.cu) and
-// B12b (fused_mlp_block.cu): dtype helpers, the row LayerNorm and a tiled
-// GEMM with the blocks' epilogues.
+// B12b (fused_mlp_block.cu): dtype helpers, the row LayerNorm and two tiled
+// GEMMs with the blocks' epilogues: gemm_kernel (f32 FMAs, every dtype and
+// width) and mma_gemm_kernel (bf16 on the tensor cores, below).
 //
-// The GEMM does its products as f32 FMAs on the CUDA cores, fed from shared
-// memory: a 128 x 64 output tile per block of 256 threads, 8-deep k slices,
-// each thread an 8 x 4 register micro-tile (rows ty + 16 i, columns
+// gemm_kernel does its products as f32 FMAs on the CUDA cores, fed from
+// shared memory: a 128 x 64 output tile per block of 256 threads, 8-deep k
+// slices, each thread an 8 x 4 register micro-tile (rows ty + 16 i, columns
 // tx + 16 j, so the shared-memory reads of a warp are broadcasts or
 // consecutive). Inputs in bf16 are widened on load, so every product is exact
 // and every sum f32, as the TPU kernels' preferred_element_type=f32 dots.
@@ -19,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace ovo_block {
 
@@ -216,6 +219,356 @@ cudaError_t launch_gemm(const void* A, int lda, const void* Bw, int ldb,
       static_cast<const T*>(A), lda, static_cast<const T*>(Bw), ldb, gn, gs,
       M, N, K, group, bias, static_cast<const T*>(resid), out, ldo, act);
   return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16 GEMM on the tensor cores: the same C = A B, B addressing, k groups and
+// epilogues as gemm_kernel, for N a multiple of the tile's N extent and K
+// (and the group) a multiple of MMA_BK.
+//
+// What bounds it: mma.sync (Hopper's wgmma is not used) and the shared
+// memory that feeds it. A warp's tile of m16n8k16 products (bf16 in, f32
+// accumulators) takes its fragments through ldmatrix (B, a (K, N) row-major
+// weight, through ldmatrix.trans); the wider the warp tile, the fewer
+// shared-memory bytes a product needs. One-group GEMMs (fc) take 128 x 256
+// blocks of eight 64 x 64 warp tiles, one block an SM (~246 registers);
+// grouped ones (qkv, out, proj) hold a second accumulator set and take
+// 128 x 128 blocks of eight 32 x 64 warp tiles (~228 registers). A
+// MMA_STAGES-deep ring of MMA_BK-deep k slices in shared memory is filled
+// by 16-byte cp.async copies (rows at or past M zero-filled), and the
+// fragments of the next k16 step load while the current step's products
+// run (two register sets). Rows are padded by 8 values, an odd number of
+// 16-byte units: ldmatrix reads no two rows of one 8 x 8 matrix from one
+// bank. The tiles and the k step are fixed at compile time, so the
+// unrolled loops carry no run-time guards; they were chosen by timing
+// their runners-up at the PE shape on an H100 (PERF.md, PR 11).
+//
+// The k groups: the mma accumulates without rounding to nearest, so a
+// group's partial sum starts from zero accumulators and joins the running
+// f32 sum with one __fadd_rn when the group ends, as in gemm_kernel. With
+// one group (GROUPED false) the accumulators are the running sum.
+//
+// Epilogues, from the f32 accumulators in registers, in gemm_kernel's op
+// order: EPI_ACT and EPI_RESID as there, and EPI_QKV_ROPE (B12a's qkv):
+// bias, then rotate-half RoPE on the f32 q and k (each op rounded on its
+// own), rounded once to bf16 and written to the packed [q | k | v] buffer
+// (B, L, 3D), head h at columns h hd of each section. It needs a warp tile
+// 64 columns wide over the per-head weights (heads, D, 3 * 64): a warp's
+// columns are then one head's q, k or v, and column d and its rotate-half
+// partner d + 32 sit in n8 tiles j and j + 4 of the same lane.
+// ---------------------------------------------------------------------------
+enum { EPI_QKV_ROPE = 3 };
+
+constexpr int MMA_BK = 64, MMA_STAGES = 4;  // the k step, the ring's depth
+
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_>
+struct MmaTile {
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;
+  static constexpr int MT = WTM / 16, NT = WTN / 8;  // m16 / n8 tiles a warp
+  static constexpr int LDA = MMA_BK + 8, LDB = BN + 8;
+  static constexpr int STAGE = BM * LDA + MMA_BK * LDB;  // bf16 values
+  static constexpr size_t SMEM = sizeof(__nv_bfloat16) * MMA_STAGES * STAGE;
+  static_assert(WTM % 16 == 0 && WTN == 64, "warp tile: 64 columns wide");
+  static_assert((BM * MMA_BK / 8) % THREADS == 0, "A copies");
+  static_assert((MMA_BK * BN / 8) % THREADS == 0, "B copies");
+  static_assert(THREADS % (BN / 8) == 0, "B column per thread");
+};
+using PlainTile = MmaTile<128, 256, 2, 4>;  // one k group
+using GroupTile = MmaTile<128, 128, 4, 2>;  // grouped sums
+
+// B12a's RoPE epilogue: cos / sin (L, 32) f32, the packed buffer's D
+struct RopeEpi {
+  const float* cos_t;
+  const float* sin_t;
+  int L, D, use_rope;
+};
+
+template <class Tl, int EPI, bool GROUPED>
+__global__ void __launch_bounds__(Tl::THREADS, 1)
+mma_gemm_kernel(const __nv_bfloat16* __restrict__ A, int lda,
+                const __nv_bfloat16* __restrict__ Bw, int ldb, int gn,
+                long long gs, int M, int K, int group,
+                const float* __restrict__ bias,
+                const __nv_bfloat16* __restrict__ resid,
+                void* __restrict__ out, int ldo, int act, RopeEpi rope) {
+  using bf16 = __nv_bfloat16;
+  static_assert(EPI == EPI_ACT || EPI == EPI_RESID || EPI == EPI_QKV_ROPE,
+                "epilogue");
+  constexpr int BM = Tl::BM, BN = Tl::BN, LDA = Tl::LDA, LDB = Tl::LDB;
+  constexpr int MT = Tl::MT, NT = Tl::NT, THREADS = Tl::THREADS;
+  constexpr int CPR = MMA_BK / 8;  // 16-byte copies an A row
+  constexpr int A_COPIES = BM * CPR / THREADS;
+  constexpr int A_ROWS = THREADS / CPR;  // A rows a copy round
+  constexpr int B_COPIES = MMA_BK * BN / 8 / THREADS;
+  constexpr int B_ROWS = THREADS / (BN / 8);  // k rows a B copy round
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % Tl::WARPS_M, wn = warp / Tl::WARPS_M;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  // this thread's copies: A rows tid / CPR + A_ROWS i at k offset
+  // 8 (tid % CPR); B k rows tid / (BN / 8) + B_ROWS i at one column chunk
+  const int a_row0 = tid / CPR, a_k = 8 * (tid % CPR);
+  const bf16* a_src[A_COPIES];
+  bool a_ok[A_COPIES];
+#pragma unroll
+  for (int i = 0; i < A_COPIES; ++i) {
+    const int m = m0 + a_row0 + A_ROWS * i;
+    a_ok[i] = m < M;
+    a_src[i] = A + (size_t)(a_ok[i] ? m : 0) * lda + a_k;
+  }
+  const int b_col = 8 * (tid % (BN / 8)), b_row = tid / (BN / 8);
+  const int bn = n0 + b_col;
+  const bf16* b_src =
+      Bw + (gs ? (long long)(bn / gn) * gs + bn % gn : (long long)bn) +
+      (long long)b_row * ldb;
+
+  auto load_stage = [&](int stage, int k0) {
+    bf16* as = smem + stage * Tl::STAGE;
+    bf16* bs = as + BM * LDA;
+#pragma unroll
+    for (int i = 0; i < A_COPIES; ++i)
+      copy_async(as + (a_row0 + A_ROWS * i) * LDA + a_k, a_src[i] + k0,
+                 a_ok[i], 3);
+#pragma unroll
+    for (int i = 0; i < B_COPIES; ++i)
+      copy_async(bs + (b_row + B_ROWS * i) * LDB + b_col,
+                 b_src + (long long)(k0 + B_ROWS * i) * ldb, true, 3);
+  };
+
+  float acc[MT][NT][4], part[GROUPED ? MT : 1][GROUPED ? NT : 1][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  if (GROUPED) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          part[GROUPED ? i : 0][GROUPED ? j : 0][e] = 0.f;
+  }
+
+  const int k_steps = K / MMA_BK, group_steps = group / MMA_BK;
+  constexpr int KK = MMA_BK / 16;  // k16 steps a slice
+  const int a_row = lane & 15, a_col = 8 * (lane >> 4);
+  // the fragments of k16 step kk of a slot: A through ldmatrix, B (k x n
+  // in shared memory) through ldmatrix.trans, two n8 tiles a load
+  auto load_frags = [&](uint32_t (&af)[MT][4], uint32_t (&bfr)[NT][2],
+                        int slot, int kk) {
+    const bf16* as = smem + slot * Tl::STAGE + (wm * Tl::WTM) * LDA;
+    const bf16* bs = smem + slot * Tl::STAGE + BM * LDA + wn * Tl::WTN;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      ldmatrix_x4(af[i], as + (16 * i + a_row) * LDA + 16 * kk + a_col);
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, bs + (16 * kk + a_row) * LDB + 16 * j + a_col);
+      bfr[2 * j][0] = r[0];
+      bfr[2 * j][1] = r[1];
+      bfr[2 * j + 1][0] = r[2];
+      bfr[2 * j + 1][1] = r[3];
+    }
+  };
+  auto products = [&](const uint32_t (&af)[MT][4],
+                      const uint32_t (&bfr)[NT][2]) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (GROUPED)
+          mma_bf16(part[GROUPED ? i : 0][GROUPED ? j : 0], af[i], bfr[j][0],
+                   bfr[j][1]);
+        else
+          mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+      }
+  };
+  auto end_group = [&](int kt) {
+    if (GROUPED && (kt + 1) % group_steps == 0) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& p = part[GROUPED ? i : 0][GROUPED ? j : 0][e];
+            acc[i][j][e] = __fadd_rn(acc[i][j][e], p);
+            p = 0.f;
+          }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < MMA_STAGES - 1; ++s) {
+    if (s < k_steps) load_stage(s, s * MMA_BK);
+    cp_async_commit();
+  }
+  // Two register sets of fragments: step kk + 1's are loaded while step
+  // kk's products run; the next slice's first fragments after the barrier
+  // that says it has landed and that every warp is done with the slot the
+  // next copies refill.
+  uint32_t af[2][MT][4], bfr[2][NT][2];
+  cp_async_wait<MMA_STAGES - 2>();
+  __syncthreads();
+  load_frags(af[0], bfr[0], 0, 0);
+  for (int kt = 0; kt < k_steps; ++kt) {
+    const int slot = kt % MMA_STAGES;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      if (kk == KK - 1) {
+        cp_async_wait<MMA_STAGES - 2>();
+        __syncthreads();
+      }
+      if (kk < KK - 1)
+        load_frags(af[(kk + 1) & 1], bfr[(kk + 1) & 1], slot, kk + 1);
+      else if (kt + 1 < k_steps)
+        load_frags(af[(kk + 1) & 1], bfr[(kk + 1) & 1],
+                   (kt + 1) % MMA_STAGES, 0);
+      if (kk == 0) {
+        const int nxt = kt + MMA_STAGES - 1;
+        if (nxt < k_steps) load_stage(nxt % MMA_STAGES, nxt * MMA_BK);
+        cp_async_commit();
+      }
+      products(af[kk & 1], bfr[kk & 1]);
+    }
+    end_group(kt);
+  }
+
+  // epilogue: lane (g, c) holds rows g and g + 8 of each m16 tile, columns
+  // 2c and 2c + 1 of each n8 tile
+  const int g = lane >> 2, c = lane & 3;
+  const int wn0 = n0 + wn * Tl::WTN;
+  int sec = 0, head = 0;
+  if (EPI == EPI_QKV_ROPE) {  // the warp's 64 columns: one head's q, k or v
+    head = wn0 / 192;
+    sec = wn0 % 192 / 64;
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = m0 + wm * Tl::WTM + 16 * i + g + 8 * hh;
+      if (m >= M) continue;
+      if (EPI == EPI_QKV_ROPE) {
+        float y[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            y[j][e] = __fadd_rn(acc[i][j][2 * hh + e],
+                                bias[wn0 + 8 * j + 2 * c + e]);
+        if (rope.use_rope && sec < 2) {
+          const int l = m % rope.L;
+#pragma unroll
+          for (int j = 0; j < NT / 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int d = 8 * j + 2 * c + e;
+              const float cs = rope.cos_t[l * 32 + d];
+              const float sn = rope.sin_t[l * 32 + d];
+              const float x1 = y[j][e], x2 = y[j + NT / 2][e];
+              y[j][e] = __fsub_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn));
+              y[j + NT / 2][e] =
+                  __fadd_rn(__fmul_rn(x1, sn), __fmul_rn(x2, cs));
+            }
+        }
+        bf16* orow = static_cast<bf16*>(out) + (size_t)m * ldo +
+                     sec * rope.D + head * 64;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * c) =
+              __floats2bfloat162_rn(y[j][0], y[j][1]);
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = wn0 + 8 * j + 2 * c;
+        const float c0 = acc[i][j][2 * hh], c1 = acc[i][j][2 * hh + 1];
+        if (EPI == EPI_ACT) {
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) +
+                                             (size_t)m * ldo + n) =
+              __floats2bfloat162_rn(
+                  activate<bf16>(__fadd_rn(c0, bias[n]), act),
+                  activate<bf16>(__fadd_rn(c1, bias[n + 1]), act));
+        } else {
+          const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(
+              resid + (size_t)m * ldo + n);
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) +
+                                             (size_t)m * ldo + n) =
+              __floats2bfloat162_rn(
+                  __fadd_rn(__fadd_rn(__low2float(r), c0), bias[n]),
+                  __fadd_rn(__fadd_rn(__high2float(r), c1), bias[n + 1]));
+        }
+      }
+    }
+}
+
+// Whether the tensor-core GEMM takes a bf16 product of this shape: N a
+// multiple of its tile's N extent, K and the group multiples of MMA_BK,
+// the weight's rows 16-byte aligned (Bw, its stride and column groups) and
+// A's row stride too, the residual and the output's row stride aligned for
+// pairs; EPI_QKV_ROPE also needs the per-head layout of hd 64 (one head's
+// q, k or v a warp). A and the output are the entry points' own 16-byte
+// aligned buffers. The one test of what takes the tensor cores: the entry
+// points choose their routes by it and report them.
+inline bool mma_gemm_fits(const void* Bw, const void* resid, int lda,
+                          int ldb, int gn, long long gs, int N, int K,
+                          int group, int ldo, int epi) {
+  const bool aligned = reinterpret_cast<uintptr_t>(Bw) % 16 == 0 &&
+                       lda % 8 == 0 && ldb % 8 == 0 && gn % 8 == 0 &&
+                       gs % 8 == 0 &&
+                       reinterpret_cast<uintptr_t>(resid) % 8 == 0 &&
+                       ldo % 2 == 0;
+  const int bn = group < K ? GroupTile::BN : PlainTile::BN;
+  const bool shape = N % bn == 0 && K % MMA_BK == 0 &&
+                     group % MMA_BK == 0 && K % group == 0;
+  return aligned && shape && (epi != EPI_QKV_ROPE || gn == 192);
+}
+
+template <class Tl, int EPI, bool GROUPED>
+cudaError_t launch_mma_gemm_as(const void* A, int lda, const void* Bw,
+                               int ldb, int gn, long long gs, int M, int N,
+                               int K, int group, const float* bias,
+                               const void* resid, void* out, int ldo, int act,
+                               RopeEpi rope, cudaStream_t stream) {
+  auto kernel = mma_gemm_kernel<Tl, EPI, GROUPED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tl::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid(N / Tl::BN, (M + Tl::BM - 1) / Tl::BM);
+  kernel<<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(A), lda,
+      static_cast<const __nv_bfloat16*>(Bw), ldb, gn, gs, M, K, group, bias,
+      static_cast<const __nv_bfloat16*>(resid), out, ldo, act, rope);
+  return cudaGetLastError();
+}
+
+// bf16 C = A B with EPI on the tensor cores, for a shape mma_gemm_fits
+// takes (the caller chose this route by it)
+template <int EPI>
+cudaError_t launch_mma_gemm(const void* A, int lda, const void* Bw, int ldb,
+                            int gn, long long gs, int M, int N, int K,
+                            int group, const float* bias, const void* resid,
+                            void* out, int ldo, int act, RopeEpi rope,
+                            cudaStream_t stream) {
+  if (group < K)
+    return launch_mma_gemm_as<GroupTile, EPI, true>(
+        A, lda, Bw, ldb, gn, gs, M, N, K, group, bias, resid, out, ldo, act,
+        rope, stream);
+  return launch_mma_gemm_as<PlainTile, EPI, false>(
+      A, lda, Bw, ldb, gn, gs, M, N, K, K, bias, resid, out, ldo, act, rope,
+      stream);
 }
 
 }  // namespace ovo_block

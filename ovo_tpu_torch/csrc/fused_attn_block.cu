@@ -18,26 +18,40 @@
 // What bounds it on an H100: per 577-token view and layer it does 6.2 GFLOP
 // (qkv 3.63, scores and p.v 1.36, out-projection 1.21) and moves ~8 MB of
 // bf16 weights once per call: in bf16 the tensor cores would bound a view
-// near 6.3 us. This first version does every product as f32 FMAs on the CUDA
-// cores (67 TFLOP/s peak), so FMA throughput and shared-memory bandwidth
-// bound it.
+// near 6.3 us, the 7-view call (43.4 GFLOP) near 44 us.
 //
 // Design. The TPU kernel walks the heads in sequence on one core, computing
 // LN once at head 0 and summing the out-projection in one VMEM scratch. A
-// Hopper block shares nothing with other blocks, so the call runs as five
-// launches over scratch in device memory (the wrapper allocates it):
+// Hopper block shares nothing with other blocks, so the call runs as four
+// or five launches over scratch in device memory (the wrapper allocates
+// it), through one packed bf16 / f32 (B, L, 3D) buffer of [q | k | v]
+// sections, head h at columns h hd of each:
 //   1. LN rows -> lnx (dtype);
-//   2. the qkv GEMM over the per-head weights (heads, D, 3hd) read in place,
-//      f32 output with the bias;
-//   3. RoPE, the rounding to the dtype and the split into q, k, v
-//      (B, heads, L, hd);
-//   4. attention per (view, head, 32-query tile), the 32 score rows kept in
-//      shared memory so the exact row max and sum are taken once and p is
-//      rounded after normalizing (kernel B10's design);
+//   2. the qkv GEMM over the per-head weights (heads, D, 3hd) read in place.
+//      bf16 with hd 64 (the PE tower's; block_common.cuh mma_gemm_kernel,
+//      EPI_QKV_ROPE): on the tensor cores, summed in groups of one k step
+//      (QKV_GROUP below), the bias and the f32 RoPE in its epilogue,
+//      rounded once and written to the packed buffer -- no f32 scratch, no
+//      third launch. Other shapes: the f32 FMA gemm_kernel writes f32 q, k,
+//      v plus bias to a scratch, then
+//   3. rope_split_kernel: RoPE, the rounding to the dtype and the packing;
+//   4. attention over the packed buffer. bf16, not causal, hd a multiple of
+//      16: B5's two-pass tensor-core kernel (two_pass_attention.cuh), which
+//      computes this function exactly: f32 scores times the f32 scale, keys
+//      at or past L_real at -1e30, p rounded after normalizing, p.v rounded
+//      once. Otherwise (f32, causal, other head sizes) attn_kernel: per
+//      (view, head, 32-query tile) the 32 score rows kept in shared memory
+//      so the exact row max and sum are taken once and p is rounded after
+//      normalizing (kernel B10's first design), FMAs on the CUDA cores;
 //   5. the out-projection GEMM over the token-major heads (B L, D), its k
 //      axis summed per head then across heads in order, with the residual
-//      and the bias.
+//      and the bias (tensor cores in bf16 where mma_gemm_fits takes it).
+// attn_routes chooses the route of each stage; ovo_fused_attn_block_routes
+// reports it to the wrapper. The first design (every stage on f32 FMAs, q,
+// k, v split into (B, heads, L, hd) from an f32 scratch) took 3.159 ms at
+// the PE shape on an H100.
 #include "block_common.cuh"
+#include "two_pass_attention.cuh"
 
 namespace {
 
@@ -49,22 +63,21 @@ constexpr int THREADS = 256;  // 8 warps x 4 rows
 constexpr int MAX_L = 1024;
 
 // 3. RoPE (rotate-half on the f32 values, each op rounded on its own), the
-// rounding to T and the split of the per-head [q | k | v] columns.
+// rounding to T and the packing of the per-head [q | k | v] columns of qkv
+// (B L, 3D), head-major, into packed (B L, 3D), section-major.
 template <typename T>
 __global__ void rope_split_kernel(const float* __restrict__ qkv,
                                   const float* __restrict__ cos_t,
                                   const float* __restrict__ sin_t,
-                                  T* __restrict__ q, T* __restrict__ k,
-                                  T* __restrict__ v, int B, int L, int H,
-                                  int hd, int use_rope) {
+                                  T* __restrict__ packed, int L, int H,
+                                  int hd, long long total, int use_rope) {
   const long long D = (long long)H * hd;
-  const long long total = (long long)B * L * D;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const long long m = idx / D;
   const int c = (int)(idx % D);
   const int h = c / hd, d = c % hd;
-  const int b = (int)(m / L), l = (int)(m % L);
+  const int l = (int)(m % L);
   const float* base = qkv + m * 3 * D + (long long)h * 3 * hd;
   float qv = base[d], kv = base[hd + d];
   const float vv = base[2 * hd + d];
@@ -82,18 +95,18 @@ __global__ void rope_split_kernel(const float* __restrict__ qkv,
       kv = __fadd_rn(__fmul_rn(k1, sn), __fmul_rn(k2, cs));
     }
   }
-  const long long o = (((long long)b * H + h) * L + l) * hd + d;
-  q[o] = from_f<T>(qv);
-  k[o] = from_f<T>(kv);
-  v[o] = from_f<T>(vv);
+  T* row = packed + m * 3 * D + c;
+  row[0] = from_f<T>(qv);
+  row[D] = from_f<T>(kv);
+  row[2 * D] = from_f<T>(vv);
 }
 
 __host__ __device__ __forceinline__ int score_ld(int L) {
   return (L + BK - 1) / BK * BK;
 }
 
-// 4. Whole-row softmax attention for one (view, head, 32-query tile); q, k,
-// v (B, H, L, hd) contiguous, out token-major (B, L, H, hd).
+// 4. Whole-row softmax attention for one (view, head, 32-query tile) of the
+// packed (B L, 3D) buffer; out token-major (B L, D).
 //   pass 1: 128-key tiles of k through shared memory; warp w owns query rows
 //           4w..4w+3, lane j keys j + 32c of the tile (a 4 x 4 register
 //           micro-tile); the scaled, masked score lands in the row buffer;
@@ -103,9 +116,8 @@ __host__ __device__ __forceinline__ int score_ld(int L) {
 //           j + 32c.
 template <typename T, int NC>
 __global__ void __launch_bounds__(THREADS)
-attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, T* __restrict__ out, int H, int L,
-            int hd, int kv_len, int causal, float scale) {
+attn_kernel(const T* __restrict__ packed, T* __restrict__ out, int H,
+            int L, int hd, int kv_len, int causal, float scale) {
   constexpr int LDV = 32 * NC;
   const int LD = hd + 1;  // odd row length: lanes on distinct banks
   const int LS = score_ld(L);
@@ -117,10 +129,10 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int q0 = blockIdx.x * BQ;
-  const size_t head = ((size_t)b * H + h) * L * hd;
-  const T* qb = q + head;
-  const T* kb = k + head;
-  const T* vb = v + head;
+  const size_t ld = 3 * (size_t)H * hd;  // the packed row
+  const T* qb = packed + (size_t)b * L * ld + (size_t)h * hd;
+  const T* kb = qb + (size_t)H * hd;
+  const T* vb = kb + (size_t)H * hd;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -129,7 +141,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < BQ * hd; i += THREADS) {
     const int r = i / hd, d = i % hd, t = q0 + r;
-    q_s[r * LD + d] = t < L ? to_f<T>(qb[(size_t)t * hd + d]) : 0.f;
+    q_s[r * LD + d] = t < L ? to_f<T>(qb[(size_t)t * ld + d]) : 0.f;
   }
 
   for (int tile = 0; tile < n_tiles; ++tile) {
@@ -137,7 +149,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     for (int i = tid; i < BK * hd; i += THREADS) {
       const int r = i / hd, d = i % hd, t = k0 + r;
-      t_s[r * LD + d] = t < L ? to_f<T>(kb[(size_t)t * hd + d]) : 0.f;
+      t_s[r * LD + d] = t < L ? to_f<T>(kb[(size_t)t * ld + d]) : 0.f;
     }
     __syncthreads();
     float s[4][4];
@@ -195,7 +207,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     for (int i = tid; i < BK * LDV; i += THREADS) {
       const int r = i / LDV, d = i % LDV, t = k0 + r;
-      t_s[i] = (t < L && d < hd) ? to_f<T>(vb[(size_t)t * hd + d]) : 0.f;
+      t_s[i] = (t < L && d < hd) ? to_f<T>(vb[(size_t)t * ld + d]) : 0.f;
     }
     __syncthreads();
     const float* p0 = s_s + r0 * LS + k0;
@@ -227,9 +239,9 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int NC>
-cudaError_t launch_attn(const void* q, const void* k, const void* v,
-                        void* out, int B, int H, int L, int hd, int kv_len,
-                        int causal, cudaStream_t stream) {
+cudaError_t launch_attn(const void* packed, void* out, int B, int H, int L,
+                        int hd, int kv_len, int causal, float scale,
+                        cudaStream_t stream) {
   const int ld = hd + 1;
   const int tile = BK * (ld > 32 * NC ? ld : 32 * NC);
   const size_t smem =
@@ -240,70 +252,141 @@ cudaError_t launch_attn(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   dim3 grid((L + BQ - 1) / BQ, B * H);
   attn_kernel<T, NC><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, L, hd, kv_len,
-      causal, (float)pow((double)hd, -0.5));
+      static_cast<const T*>(packed), static_cast<T*>(out), H, L, hd, kv_len,
+      causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_attn(const void* q, const void* k, const void* v,
-                          void* out, int B, int H, int L, int hd, int kv_len,
-                          int causal, cudaStream_t s) {
+cudaError_t dispatch_attn(const void* packed, void* out, int B, int H, int L,
+                          int hd, int kv_len, int causal, float scale,
+                          cudaStream_t s) {
   switch ((hd + 31) / 32) {
-    case 1: return launch_attn<T, 1>(q, k, v, out, B, H, L, hd, kv_len, causal, s);
-    case 2: return launch_attn<T, 2>(q, k, v, out, B, H, L, hd, kv_len, causal, s);
-    case 3: return launch_attn<T, 3>(q, k, v, out, B, H, L, hd, kv_len, causal, s);
-    case 4: return launch_attn<T, 4>(q, k, v, out, B, H, L, hd, kv_len, causal, s);
+    case 1: return launch_attn<T, 1>(packed, out, B, H, L, hd, kv_len, causal, scale, s);
+    case 2: return launch_attn<T, 2>(packed, out, B, H, L, hd, kv_len, causal, scale, s);
+    case 3: return launch_attn<T, 3>(packed, out, B, H, L, hd, kv_len, causal, scale, s);
+    case 4: return launch_attn<T, 4>(packed, out, B, H, L, hd, kv_len, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The qkv GEMM's k groups on the tensor cores: one k step each. Summed by
+// the mma over all of D (1024), its accumulation without rounding to
+// nearest moved more of B12a's outputs by a bf16 step at the PE shape than
+// two plain evaluations (card and CPU) differ in; summed per k step from
+// zero and added in f32 it stays below (PERF.md, PR 11).
+constexpr int QKV_GROUP = MMA_BK;
+
+// routes (bf16 only), one bit each
+constexpr int ROUTE_QKV_ROPE = 1;  // the qkv GEMM on the tensor cores, with
+                                   // RoPE and packing in its epilogue
+constexpr int ROUTE_ATTN_MMA = 2;  // two_pass_mma_kernel
+constexpr int ROUTE_OUT_MMA = 4;   // the out-projection on the tensor cores
+
+// The stages that run on the tensor cores for these inputs: bf16 only; the
+// qkv GEMM with hd 64 where mma_gemm_fits takes it; the attention where it
+// is not causal and hd is a multiple of 16 (<= 128); the out-projection
+// where mma_gemm_fits takes it.
+int attn_routes(const void* x, const void* w_heads, const void* ow, int D,
+                int H, int causal, int dtype) {
+  if (dtype != 1) return 0;
+  const int hd = D / H;
+  int r = 0;
+  if (hd == 64 && mma_gemm_fits(w_heads, nullptr, D, 3 * hd, 3 * hd,
+                                (long long)D * 3 * hd, 3 * D, D, QKV_GROUP,
+                                3 * D, EPI_QKV_ROPE))
+    r |= ROUTE_QKV_ROPE;
+  if (!causal && hd % 16 == 0) r |= ROUTE_ATTN_MMA;
+  if (mma_gemm_fits(ow, x, D, D, D, 0, D, D, hd, D, EPI_RESID))
+    r |= ROUTE_OUT_MMA;
+  return r;
 }
 
 template <typename T>
 cudaError_t run(const void* x, const void* w_heads, const float* b_heads,
                 const void* ow, const float* ob, const float* ln_s,
                 const float* ln_b, const float* cos_t, const float* sin_t,
-                void* out, void* lnx, float* qkv32, void* q, void* k,
-                void* v, void* oh, int B, int L, int D, int H, int L_real,
-                int causal, int use_rope, cudaStream_t s) {
+                void* out, void* lnx, float* qkv32, void* packed, void* oh,
+                int B, int L, int D, int H, int L_real, int causal,
+                int use_rope, int routes, cudaStream_t s) {
   const int M = B * L, hd = D / H;
+  const RopeEpi rope{cos_t, sin_t, L, D, use_rope};
+  const float scale = (float)pow((double)hd, -0.5);
   cudaError_t err = launch_ln_rows<T>(x, ln_s, ln_b, lnx, M, D, s);
   if (err != cudaSuccess) return err;
-  // qkv: B[k, n] = w_heads[n / 3hd][k][n % 3hd]; one k group (a plain sum)
-  err = launch_gemm<T, EPI_F32_BIAS>(lnx, D, w_heads, 3 * hd, 3 * hd,
-                                     (long long)D * 3 * hd, M, 3 * D, D, D,
-                                     b_heads, nullptr, qkv32, 3 * D, 0, s);
-  if (err != cudaSuccess) return err;
-  const long long total = (long long)M * D;
-  rope_split_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-      qkv32, cos_t, sin_t, static_cast<T*>(q), static_cast<T*>(k),
-      static_cast<T*>(v), B, L, H, hd, use_rope);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = dispatch_attn<T>(q, k, v, oh, B, H, L, hd, L_real, causal, s);
+  // qkv: B[k, n] = w_heads[n / 3hd][k][n % 3hd]; the FMA GEMM sums in one
+  // k group (a plain sum), the tensor cores in groups of QKV_GROUP
+  if (routes & ROUTE_QKV_ROPE) {
+    err = launch_mma_gemm<EPI_QKV_ROPE>(lnx, D, w_heads, 3 * hd, 3 * hd,
+                                        (long long)D * 3 * hd, M, 3 * D, D,
+                                        QKV_GROUP, b_heads, nullptr, packed,
+                                        3 * D, 0, rope, s);
+    if (err != cudaSuccess) return err;
+  } else {
+    err = launch_gemm<T, EPI_F32_BIAS>(lnx, D, w_heads, 3 * hd, 3 * hd,
+                                       (long long)D * 3 * hd, M, 3 * D, D, D,
+                                       b_heads, nullptr, qkv32, 3 * D, 0, s);
+    if (err != cudaSuccess) return err;
+    const long long total = (long long)M * D;
+    rope_split_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+        qkv32, cos_t, sin_t, static_cast<T*>(packed), L, H, hd, total,
+        use_rope);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (routes & ROUTE_ATTN_MMA) {
+    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(packed);
+    err = dispatch_two_pass(hd, p, p + D, p + 2 * D, 3LL * D, 3LL * D,
+                            static_cast<__nv_bfloat16*>(oh), B, L, D, H,
+                            L_real, scale, s);
+  } else {
+    err = dispatch_attn<T>(packed, oh, B, H, L, hd, L_real, causal, scale, s);
+  }
   if (err != cudaSuccess) return err;
   // out-projection: ow_heads (H, hd, D) is the (D, D) row-major matrix; the
   // k axis summed per head (groups of hd), heads added in order
-  return launch_gemm<T, EPI_RESID>(oh, D, ow, D, D, 0, M, D, D, hd, ob, x,
-                                   out, D, 0, s);
+  return routes & ROUTE_OUT_MMA
+             ? launch_mma_gemm<EPI_RESID>(oh, D, ow, D, D, 0, M, D, D, hd,
+                                          ob, x, out, D, 0, rope, s)
+             : launch_gemm<T, EPI_RESID>(oh, D, ow, D, D, 0, M, D, D, hd, ob,
+                                         x, out, D, 0, s);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
-// x, out (B, L, D) and the scratch lnx, oh (B L, D) in the dtype; w_heads
-// (H, D, 3hd) and ow_heads (H, hd, D) in the dtype; b_heads (H, 3hd), ob,
-// ln_s, ln_b (D,), cos / sin (L, hd/2) and qkv32 (B L, 3D) f32; q, k, v
-// (B, H, L, hd) in the dtype. All contiguous. L <= 1024, hd % 8 == 0,
-// hd <= 128, B * H <= 65535. dtype: 0 = float32, 1 = bfloat16. Returns the
-// first failing cudaError_t of the five launches.
+// The routes ovo_fused_attn_block takes for these inputs: the ROUTE_* bits.
+extern "C" int ovo_fused_attn_block_routes(const void* x, const void* w_heads,
+                                           const void* ow, int D, int H,
+                                           int causal, int dtype) {
+  if (H < 1 || D % H) return 0;
+  return attn_routes(x, w_heads, ow, D, H, causal, dtype);
+}
+
+// x, out (B, L, D) and the scratch lnx, oh (B L, D), packed (B L, 3D) in
+// the dtype; w_heads (H, D, 3hd) and ow_heads (H, hd, D) in the dtype;
+// b_heads (H, 3hd), ob, ln_s, ln_b (D,), cos / sin (L, hd/2) and qkv32
+// (B L, 3D; unused, and may be null, where the qkv GEMM takes the
+// tensor-core route) f32. All contiguous; out and the scratch 16-byte
+// aligned. L <= 1024, hd % 8 == 0, hd <= 128, B * H <= 65535. dtype:
+// 0 = float32, 1 = bfloat16. Returns the first failing cudaError_t of the
+// launches.
 extern "C" int ovo_fused_attn_block(
     const void* x, const void* w_heads, const void* b_heads, const void* ow,
     const void* ob, const void* ln_s, const void* ln_b, const void* cos_t,
-    const void* sin_t, void* out, void* lnx, void* qkv32, void* q, void* k,
-    void* v, void* oh, int B, int L, int D, int H, int L_real, int causal,
+    const void* sin_t, void* out, void* lnx, void* qkv32, void* packed,
+    void* oh, int B, int L, int D, int H, int L_real, int causal,
     int use_rope, int dtype, void* stream) {
   if (B < 1 || L < 1 || L > MAX_L || H < 1 || D % H || (D / H) % 8 ||
-      D / H > 128 || B * H > 65535 || L_real < 1 || L_real > L)
+      D / H > 128 || B * H > 65535 || L_real < 1 || L_real > L ||
+      !aligned16(out) || !aligned16(lnx) || !aligned16(packed) ||
+      !aligned16(oh))
+    return (int)cudaErrorInvalidValue;
+  const int routes = attn_routes(x, w_heads, ow, D, H, causal, dtype);
+  if (!(routes & ROUTE_QKV_ROPE) && qkv32 == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* f[6] = {static_cast<const float*>(b_heads),
@@ -315,11 +398,12 @@ extern "C" int ovo_fused_attn_block(
   float* qkv = static_cast<float*>(qkv32);
   if (dtype == 0)
     return (int)run<float>(x, w_heads, f[0], ow, f[1], f[2], f[3], f[4], f[5],
-                           out, lnx, qkv, q, k, v, oh, B, L, D, H, L_real,
-                           causal, use_rope, s);
+                           out, lnx, qkv, packed, oh, B, L, D, H, L_real,
+                           causal, use_rope, routes, s);
   if (dtype == 1)
     return (int)run<__nv_bfloat16>(x, w_heads, f[0], ow, f[1], f[2], f[3],
-                                   f[4], f[5], out, lnx, qkv, q, k, v, oh, B,
-                                   L, D, H, L_real, causal, use_rope, s);
+                                   f[4], f[5], out, lnx, qkv, packed, oh, B,
+                                   L, D, H, L_real, causal, use_rope, routes,
+                                   s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,8 +13,11 @@ Port of ``ovo_tpu/ops/fused_block.py``, the opt-in tower path
     cached on the block module.
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/fused_attn_block.cu``,
-``csrc/fused_mlp_block.cu``) or raises; on a CPU tensor it runs its
-``*_plain`` version, which follows the TPU kernels' op order: f32 LayerNorm
+``csrc/fused_mlp_block.cu``) or raises; in bf16 the kernel runs its GEMMs on
+the tensor cores where the shape allows, and B12a's attention on B5's
+two-pass tensor-core kernel (:func:`attn_block_routes` /
+:func:`mlp_block_routes` report what the kernel chose). On a CPU tensor it
+runs its ``*_plain`` version, which follows the TPU kernels' op order: f32 LayerNorm
 statistics with LN(x) rounded to x's dtype; per head qkv in f32 plus the f32
 bias, RoPE in f32 on the f32 q and k, q / k / v rounded to the dtype, f32
 scores scaled after the dot, keys at or past ``L_real`` (and later keys when
@@ -42,6 +45,55 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"gelu": 0, "quick_gelu": 1}
 _NEG = -1e30
 MAX_TOKENS = 1024
+# the qkv route bit of ovo_fused_attn_block_routes
+_QKV_ROPE = 1
+
+
+def _entry(name: str, n_ptrs: int, n_ints: int, *, routes: bool = False):
+    """The C entry point ``ovo_<name>`` of kernel ``name`` (pointers, ints,
+    then the stream), or with ``routes`` its route query
+    ``ovo_<name>_routes`` (pointers, ints), its argument types set once."""
+    symbol = f"ovo_{name}_routes" if routes else f"ovo_{name}"
+    fn = getattr(cuda_build.library(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+            + ([] if routes else [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def mlp_block_routes(x: torch.Tensor, fc_w: torch.Tensor,
+                     proj_w: torch.Tensor, chunk: int) -> dict:
+    """What runs B12b's two GEMMs on the card for these CUDA tensors, as
+    the kernel chooses (``csrc/fused_mlp_block.cu`` ``mlp_routes``):
+    ``"mma"`` (bf16 tensor cores: N a multiple of the tile's N extent, K
+    and the chunk multiples of its k step, aligned weights) or ``"fma"``
+    (f32 FMAs on the CUDA cores: float32 and the other widths)."""
+    D, hidden = fc_w.shape
+    bits = _entry("fused_mlp_block", 3, 4, routes=True)(
+        x.data_ptr(), fc_w.data_ptr(), proj_w.data_ptr(), D, hidden,
+        min(chunk, hidden), _DTYPES[x.dtype])
+    return dict(fc="mma" if bits & 1 else "fma",
+                proj="mma" if bits & 2 else "fma")
+
+
+def attn_block_routes(x: torch.Tensor, w_heads: torch.Tensor,
+                      ow_heads: torch.Tensor, *, n_heads: int,
+                      causal: bool) -> dict:
+    """What runs B12a's stages on the card for these CUDA tensors, as the
+    kernel chooses (``csrc/fused_attn_block.cu`` ``attn_routes``). ``qkv``:
+    ``"mma_rope"`` (bf16 tensor cores, bias and RoPE in the epilogue,
+    written packed: hd 64, the PE tower's) or ``"fma"`` (f32 FMAs into an
+    f32 scratch, then a RoPE and packing launch); ``attention``: ``"mma"``
+    (B5's two-pass tensor-core kernel: bf16, not causal, hd a multiple of
+    16) or ``"fma"``; ``out``: ``"mma"`` or ``"fma"``, as for B12b."""
+    D = w_heads.shape[1]
+    bits = _entry("fused_attn_block", 3, 4, routes=True)(
+        x.data_ptr(), w_heads.data_ptr(), ow_heads.data_ptr(), D, n_heads,
+        int(causal), _DTYPES[x.dtype])
+    return dict(qkv="mma_rope" if bits & _QKV_ROPE else "fma",
+                attention="mma" if bits & 2 else "fma",
+                out="mma" if bits & 4 else "fma")
 
 
 def _ln_rows(x: torch.Tensor, scale: torch.Tensor,
@@ -155,23 +207,25 @@ def fused_attn_block(x: torch.Tensor, w_heads: torch.Tensor,
     dev, dt = x.device, x.dtype
     M = B * L
     out = torch.empty_like(x)
-    lnx = torch.empty((M, D), dtype=dt, device=dev)
-    qkv32 = torch.empty((M, 3 * D), dtype=torch.float32, device=dev)
-    q, k, v = (torch.empty((B, n_heads, L, hd), dtype=dt, device=dev)
-               for _ in range(3))
-    oh = torch.empty((M, D), dtype=dt, device=dev)
-    fn = cuda_build.library("fused_attn_block").ovo_fused_attn_block
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    # scratch: lnx (M, D), the packed [q | k | v] (M, 3D) and the heads
+    # (M, D) in one allocation; the f32 q, k, v before RoPE apart, where
+    # the qkv GEMM does not take the tensor cores
+    work = torch.empty(5 * M * D, dtype=dt, device=dev)
+    lnx, packed, oh = (work.data_ptr() + i * M * D * work.element_size()
+                       for i in (0, 1, 4))
+    qkv32 = None
+    if attn_block_routes(x, w_heads, ow_heads, n_heads=n_heads,
+                         causal=causal)["qkv"] == "fma":
+        qkv32 = torch.empty((M, 3 * D), dtype=torch.float32, device=dev)
+    fn = _entry("fused_attn_block", 14, 8)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), w_heads.data_ptr(), b_heads.data_ptr(),
                  ow_heads.data_ptr(), out_b.data_ptr(), ln_scale.data_ptr(),
                  ln_bias.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                 out.data_ptr(), lnx.data_ptr(), qkv32.data_ptr(),
-                 q.data_ptr(), k.data_ptr(), v.data_ptr(), oh.data_ptr(),
-                 B, L, D, n_heads, int(L_real), int(causal), int(use_rope),
+                 out.data_ptr(), lnx,
+                 None if qkv32 is None else qkv32.data_ptr(), packed, oh, B,
+                 L, D, n_heads, int(L_real), int(causal), int(use_rope),
                  _DTYPES[dt], stream)
     cuda_build.check(err, "fused_attn_block")
     cuda_build.count_launch("fused_attn_block")
@@ -248,19 +302,16 @@ def fused_mlp_block(x: torch.Tensor, fc_w: torch.Tensor, fc_b: torch.Tensor,
     dev, dt = x.device, x.dtype
     M = B * L
     out = torch.empty_like(x)
-    lnx = torch.empty((M, D), dtype=dt, device=dev)
-    h = torch.empty((M, hidden), dtype=dt, device=dev)
-    fn = cuda_build.library("fused_mlp_block").ovo_fused_mlp_block
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    # scratch: lnx (M, D) and h (M, hidden) in one allocation
+    work = torch.empty(M * (D + hidden), dtype=dt, device=dev)
+    lnx, h = work.data_ptr(), work.data_ptr() + M * D * work.element_size()
+    fn = _entry("fused_mlp_block", 10, 6)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), fc_w.data_ptr(), fc_b.data_ptr(),
                  proj_w.data_ptr(), proj_b.data_ptr(), ln_scale.data_ptr(),
-                 ln_bias.data_ptr(), out.data_ptr(), lnx.data_ptr(),
-                 h.data_ptr(), M, D, hidden, chunk, _ACTS[act], _DTYPES[dt],
-                 stream)
+                 ln_bias.data_ptr(), out.data_ptr(), lnx, h, M, D, hidden,
+                 chunk, _ACTS[act], _DTYPES[dt], stream)
     cuda_build.check(err, "fused_mlp_block")
     cuda_build.count_launch("fused_mlp_block")
     return out

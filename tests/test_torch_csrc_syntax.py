@@ -8,7 +8,8 @@ brackets ``<<<...>>>`` are removed and with a header of CUDA stand-ins
 runtime calls they make) in place of the toolkit's. That catches a typo,
 an undeclared name or a template that does not instantiate before a run
 on the card; it says nothing of PTX, registers or what the kernels
-compute. Skipped where no g++ is installed.
+compute. The shared headers (``*.cuh``) go through the same pass on
+their own. Skipped where no g++ is installed.
 """
 import re
 import shutil
@@ -19,6 +20,7 @@ import pytest
 
 CSRC = Path(__file__).resolve().parents[1] / "ovo_tpu_torch" / "csrc"
 SOURCES = sorted(p.name for p in CSRC.glob("*.cu"))
+HEADERS = sorted(p.name for p in CSRC.glob("*.cuh"))
 
 STANDINS = r"""
 #pragma once
@@ -101,3 +103,17 @@ def test_cuda_source_parses_as_cpp(host_tree, name):
          str(host_tree), "-include", "cuda_bf16.h", str(host_tree / name)],
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+@pytest.mark.parametrize("name", HEADERS)
+def test_cuda_header_parses_alone_and_is_built(host_tree, name):
+    """Each shared header reads as C++ on its own (its templates are
+    instantiated where a source includes it), and some source includes
+    it, so that a kernel build compiles it and its hash covers it."""
+    proc = subprocess.run(
+        ["g++", "-x", "c++", "-std=c++17", "-fsyntax-only", "-w", "-I",
+         str(host_tree), "-include", "cuda_bf16.h", str(host_tree / name)],
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert any(f'#include "{name}"' in (CSRC / src).read_text()
+               for src in SOURCES + HEADERS)

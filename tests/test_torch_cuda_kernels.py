@@ -423,9 +423,13 @@ def test_fused_kernel_at_the_crop_shape(cuda_device, dtype, batch):
 # abs in f32 (sums in another order); bf16 6e-2: the outputs are x plus the
 # block half, below ~8 in magnitude here, where one bf16 step is up to
 # 2^-5, and intermediates rounded on an edge (LN, q, k, v, p, heads, hidden)
-# move them by a few 2^-8 more. The limits are those of chip_smoke.py.
+# move them by a few 2^-8 more. The limits are those of chip_smoke.py; in
+# bf16 both also hold chip_smoke.B12_SHARE, which the max-abs limit cannot
+# bound (B12b with h left in f32 stays under it). The shapes cover every
+# route the kernels report (attn_block_routes / mlp_block_routes).
 # ---------------------------------------------------------------------------
 
+from chip_smoke import B12_SHARE  # noqa: E402
 from ovo_tpu_torch.ops import fused_block as FB  # noqa: E402
 
 
@@ -446,19 +450,37 @@ def _block_weights(rng, dev, dtype, D, heads, hidden):
                 pw=w(hidden, D, std=hidden ** -0.5), pb=f(D))
 
 
+def _check_block(got, ref, dtype, tol, case):
+    err = _err(got, ref)
+    share = step_share(got, ref) if dtype == torch.bfloat16 else 0.0
+    assert err <= tol and share <= B12_SHARE, (case, err, share)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 6e-2)])
 def test_fused_attn_block_kernel_matches_plain(cuda_device, dtype, tol):
     rng = np.random.default_rng(26)
-    # (views, tokens, real tokens, width, heads, causal, rope): the PE
-    # shape, a causal masked block with 16-wide heads, odd lengths
+    seen = {"qkv": set(), "attention": set(), "out": set()}
+    # (views, tokens, real tokens, width, heads, causal, rope): the PE shape
+    # (M = 1154, not a multiple of the 128-row tile), a causal masked block
+    # with 16-wide heads, odd lengths, one token, 1024 tokens with masked
+    # keys, RoPE off on the tensor-core route, causal with tensor-core
+    # GEMMs, hd 128 and 32 (the f32 scratch route)
     for B, L, l_real, D, H, causal, rope in (
             (2, 577, 577, 1024, 16, False, True),
             (3, 150, 131, 64, 4, True, False),
-            (1, 37, 30, 192, 3, False, True)):
+            (1, 37, 30, 192, 3, False, True),
+            (2, 1, 1, 128, 2, False, True),
+            (1, 1024, 1000, 256, 4, False, True),
+            (2, 150, 131, 128, 2, False, False),
+            (3, 150, 131, 128, 2, True, True),
+            (2, 577, 577, 1024, 8, False, True),
+            (2, 150, 140, 256, 8, False, True)):
         p = _block_weights(rng, cuda_device, dtype, D, H, 4 * D)
         x = _dev(rng.standard_normal((B, L, D)), cuda_device, dtype)
+        if L == 150 and D == 256:  # x off a 16-byte boundary: FMA out
+            x = _misaligned(x)
         cos = _dev(rng.standard_normal((L, D // H // 2)), cuda_device,
                    torch.float32)
         sin = _dev(rng.standard_normal((L, D // H // 2)), cuda_device,
@@ -466,8 +488,15 @@ def test_fused_attn_block_kernel_matches_plain(cuda_device, dtype, tol):
         args = (x, p["w"], p["b"], p["ow"], p["ob"], p["ls"], p["lb"], cos,
                 sin)
         kw = dict(n_heads=H, L_real=l_real, causal=causal, use_rope=rope)
-        assert _err(FB.fused_attn_block(*args, **kw),
-                    FB.fused_attn_block_plain(*args, **kw)) <= tol
+        for k, v in FB.attn_block_routes(x, p["w"], p["ow"], n_heads=H,
+                                         causal=causal).items():
+            seen[k].add(v)
+        _check_block(FB.fused_attn_block(*args, **kw),
+                     FB.fused_attn_block_plain(*args, **kw), dtype, tol,
+                     (B, L, l_real, D, H, causal, rope))
+    assert seen == ({"qkv": {"mma_rope", "fma"}, "attention": {"mma", "fma"},
+                     "out": {"mma", "fma"}} if dtype == torch.bfloat16 else
+                    {"qkv": {"fma"}, "attention": {"fma"}, "out": {"fma"}})
 
 
 @pytest.mark.cuda
@@ -475,15 +504,29 @@ def test_fused_attn_block_kernel_matches_plain(cuda_device, dtype, tol):
                                        (torch.bfloat16, 6e-2)])
 def test_fused_mlp_block_kernel_matches_plain(cuda_device, dtype, tol):
     rng = np.random.default_rng(27)
+    seen = set()
+    # hidden / chunk 4096 / 512 (the PE tower), 4096 / 1024, 768 / 384;
+    # widths the tensor-core tile does not take (D 64, 192, 72) on either
+    # GEMM; one token; 1024 tokens
     for B, L, D, hidden, chunk, act in ((2, 577, 1024, 4096, 512, "gelu"),
                                         (3, 150, 64, 256, 256, "quick_gelu"),
-                                        (1, 37, 192, 768, 384, "gelu")):
+                                        (1, 37, 192, 768, 384, "gelu"),
+                                        (2, 150, 1024, 4096, 1024, "gelu"),
+                                        (2, 1, 128, 768, 384, "gelu"),
+                                        (1, 1024, 256, 1024, 512, "gelu"),
+                                        (3, 100, 72, 288, 96, "quick_gelu")):
         p = _block_weights(rng, cuda_device, dtype, D, 1, hidden)
         x = _dev(rng.standard_normal((B, L, D)), cuda_device, dtype)
+        if L == 1024:  # x off a 16-byte boundary: the proj on FMAs
+            x = _misaligned(x)
         args = (x, p["fc"], p["fcb"], p["pw"], p["pb"], p["ls"], p["lb"])
-        assert _err(FB.fused_mlp_block(*args, act=act, chunk=chunk),
-                    FB.fused_mlp_block_plain(*args, act=act,
-                                             chunk=chunk)) <= tol
+        seen.update(FB.mlp_block_routes(x, p["fc"], p["pw"], chunk).items())
+        _check_block(FB.fused_mlp_block(*args, act=act, chunk=chunk),
+                     FB.fused_mlp_block_plain(*args, act=act, chunk=chunk),
+                     dtype, tol, (B, L, D, hidden, chunk, act))
+    assert seen == ({("fc", "mma"), ("fc", "fma"), ("proj", "mma"),
+                     ("proj", "fma")} if dtype == torch.bfloat16 else
+                    {("fc", "fma"), ("proj", "fma")})
 
 
 @pytest.mark.cuda
