@@ -16,18 +16,22 @@ non-zero and prints no result):
              and B9a / B9b at the 1280^2 decoder's shapes, shared and
              per-prompt image sides; B11 at Hiera-L's stage-1 and stage-3
              windows, B13 (bf16 only) at 128 and 256 prompts, B14 at its
-             gated shapes; B1-B6, B9a, B10, B11, B12a and B12b in bf16 also
+             gated shapes (and, beside F.layer_norm's, its time a call in a
+             run of calls back to back: the single call is mostly host
+             time); B1-B7, B9a, B10, B11, B12a and B12b in bf16 also
              within ATTN_SHARE (B3: B3_SHARE, B12: B12_SHARE) outputs off
              by more than one bf16 step, which the wrong functions (B1's
              and B6's weights rounded once, B2's and B10's rounded before
-             normalizing, B3's, B5's and B9a's left unrounded, B4's attn
-             left unrounded, B12b's h left in f32 or its gelu on erf,
+             normalizing, B3's, B5's, B7's and B9a's left unrounded, B4's
+             attn left unrounded, B12b's h left in f32 or its gelu on erf,
              B12a's q and k rounded before RoPE or its weights left
-             unrounded) must break; B10 in f32 also within B10_F32_TOL,
-             which one TF32 product per f32 product must break; B3 and
-             B4's library time is the whole function in library calls
-             (cuBLAS projections, SDPA, B4's out-projection and
-             F.layer_norm), SDPA alone beside it
+             unrounded) must break; B14 in bf16 also within ATTN_SHARE (no
+             wrong function: only its sums' order differs); B10 in f32
+             also within B10_F32_TOL, which one TF32 product per f32
+             product must break; B3, B4 and B7's library time is the whole
+             function in library calls (cuBLAS projections, SDPA, B4's
+             out-projection and F.layer_norm), B3 and B4's SDPA alone
+             beside it
   reference  the online pipeline on a small synthetic scene with the tiny-pe
              card, on the card (kernels) and on the CPU (plain versions):
              equal point map and instances, descriptors within cosine 1e-4
@@ -106,12 +110,13 @@ non-zero and prints no result):
              OVO_FUSED_BLOCK=1: per embedded keyframe 24 B12a, 24 B12b, 1
              B6 and no B5 launches, B1-B4 as in the amg_slice; no host sync
              in the frame loop; a finite mIoU / mAcc; each phase's wall
-  kernel_device  B5, B6, B1, B2, B11, B9a, B3, B4, B12a and B12b in bf16
-             and B10 in f32 at the kernel phase's shapes: the card's kernel
-             time per call from a torch.profiler trace, beside SDPA's (B3 /
-             B4: beside the whole function's library route; B12a / B12b:
-             beside the default route's block half) (last, since a trace
-             slows later launches)
+  kernel_device  B5, B6, B1, B2, B11, B9a, B3, B4, B7, B12a, B12b and B14
+             in bf16 and B10 in f32 at the kernel phase's shapes: the card's
+             kernel time per call from a torch.profiler trace, beside
+             SDPA's (B3 / B4 / B7: beside the whole function's library
+             route; B12a / B12b: beside the default route's block half;
+             B14: beside F.layer_norm); B7's trace must name its tensor-core
+             kernel (last, since a trace slows later launches)
   kernels    the kernels with their launch counts on the path that runs
              them: the amg_slice (B1-B6), the crop_slice (B10), the cli
              (B12a / B12b), the amg1280_slice (B9a, B9b, B8), the
@@ -134,6 +139,7 @@ import collections
 import copy
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -297,6 +303,24 @@ def time_ms(fn, warmup: int = 5, iters: int = 30) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def run_ms(fn, iters: int = 100) -> float:
+    """CUDA-event time per call over a run of ``iters`` calls back to back
+    (after a warm-up): the larger of the card's and the host's time per
+    call, where time_ms times each call alone, from an idle card and a
+    host thread just back from a synchronize."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def device_ms(fn, iters: int = 20, by_name=None) -> float:
@@ -498,16 +522,18 @@ def _mismatch_share(got, ref, atol=2 ** -10):
 
 
 def _report(name, dtype, err, tol, kernel, plain, library, nbytes, flops,
-            peaks, bound=None, **extra):
-    """Check the error, then time kernel, plain version and library call.
-    ``bound`` (ms, "bytes" or "operations") replaces the dtype's bound where
-    the kernel's route does the work in another number format."""
+            peaks, bound=None, iters=30, **extra):
+    """Check the error, then time kernel, plain version and library call
+    (each the median of ``iters`` calls). ``bound`` (ms, "bytes" or
+    "operations") replaces the dtype's bound where the kernel's route does
+    the work in another number format."""
     if err > tol:
         raise AssertionError(f"{name} {dtype}: max_abs_err {err} > {tol}")
     bound_ms, bound_by = bound or _bound(nbytes, flops, dtype, peaks)
     return dict(name=name, dtype=str(dtype)[6:], max_abs_err=err, tol=tol,
-                kernel_ms=time_ms(kernel), plain_ms=time_ms(plain),
-                library_ms=time_ms(library), bound_ms=bound_ms,
+                kernel_ms=time_ms(kernel, iters=iters),
+                plain_ms=time_ms(plain, iters=iters),
+                library_ms=time_ms(library, iters=iters), bound_ms=bound_ms,
                 bound_by=bound_by, bytes=nbytes, flops=flops, **extra)
 
 
@@ -537,7 +563,10 @@ def _heads_of_packed(gen, n, L, heads, hd, dev, dtype):
 # query, k constant over the tokens) weighs a row's tokens alike, where
 # the once-rounded weights move no output by a step, so its dense inputs
 # carry the check. B9a (its weights left unrounded: 0.13 on the CPU) and
-# B10 (B2's wrong function) hold it too since their tensor-core designs.
+# B10 (B2's wrong function) hold it too since their tensor-core designs,
+# B7 (its normalized weights left unrounded: 0.079-0.082 on the CPU, the
+# kernel's mma chains modelled there 4.9e-5) since its own, and B14, whose
+# kernel sums its statistics in another order than the plain version.
 ATTN_SHARE = 1e-2
 
 
@@ -644,6 +673,29 @@ def cross_i2t_tail_unrounded_attn(keys, wq, pe_q, kk_tok, vv_tok, wout,
     var = (cen * cen).mean(dim=-1, keepdim=True)
     return (cen * torch.rsqrt(var + eps) * ln_scale.float()
             + ln_bias.float()).to(dt)
+
+
+def cross_i2t_from_keys_unrounded_p(keys, wq, pe_q, kk_tok, vv_tok, heads,
+                                    t_len=None):
+    """B7's plain version with its normalized weights p left in f32 before
+    p . v_tok: another function, which ATTN_SHARE must refuse."""
+    dt = keys.dtype
+    L = keys.shape[1]
+    Bt, T, D = kk_tok.shape
+    B = max(keys.shape[0], Bt)
+    dh = D // heads
+    kh = kk_tok.float().reshape(Bt, T, heads, dh)
+    kq = torch.einsum("bthj,chj->bhtc", kh,
+                      wq.to(dt).float().reshape(-1, heads, dh)).to(dt).float()
+    pe = pe_q.to(dt).float().reshape(L, heads, dh)
+    s = (torch.matmul(kq, keys.float()[:, None].transpose(-1, -2))
+         + torch.einsum("bthj,lhj->bhtl", kh, pe)) * dh ** -0.5
+    if t_len is not None and t_len < T:
+        keep = (torch.arange(T, device=keys.device) < t_len)[:, None]
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=2)
+    vh = vv_tok.float().reshape(Bt, T, heads, dh).expand(B, T, heads, dh)
+    return torch.einsum("bhtl,bthj->blhj", p, vh).reshape(B, L, D).to(dt)
 
 
 def rope_packed_unrounded_weights(qkv, cos, sin, *, heads, kv_len):
@@ -962,6 +1014,20 @@ def check_b9b(dev, dtype, peaks, tol, Bq):
                    image_batch=Bq, shape=[B, L, T, D])
 
 
+def _b7_library(x, heads):
+    """B7's function in library calls: cuBLAS for the projection keys Wq +
+    pe_q, then SDPA per head (the port calls neither)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B = x["q"].shape[0]
+    kt, vt = (_small_head_split(x[k], B, heads) for k in ("q", "vt"))
+
+    def library():
+        qq = x["keys"] @ x["wk"] + x["pe"]
+        return sdpa(_small_head_split(qq, B, heads), kt, vt)
+
+    return library
+
+
 def check_b7(dev, dtype, peaks, tol, Bk):
     from ovo_tpu_torch.ops.attention import (cross_i2t_from_keys,
                                              cross_i2t_from_keys_plain)
@@ -970,29 +1036,34 @@ def check_b7(dev, dtype, peaks, tol, Bk):
     x = _cross_inputs(dev, dtype, Bk, B=B9_SHAPE["B"], L=B9_SHAPE["L"])
     (B, T, D), (_, L, dk) = x["q"].shape, x["keys"].shape
     args = (x["keys"], x["wk"], x["pe"], x["q"], x["vt"], heads)
-    err = 0.0
+    err, shares = 0.0, {}
     for t_len in (None, T - 2):
-        err = max(err, _max_err(cross_i2t_from_keys(*args, t_len=t_len),
-                                cross_i2t_from_keys_plain(*args,
-                                                          t_len=t_len),
-                                "B7"))
-    kt, vt = (_small_head_split(x[k], B, heads) for k in ("q", "vt"))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def library():
-        # cuBLAS for the projection, then SDPA per head
-        qq = x["keys"] @ x["wk"] + x["pe"]
-        return sdpa(_small_head_split(qq, B, heads), kt, vt)
-
+        got = cross_i2t_from_keys(*args, t_len=t_len)
+        ref = cross_i2t_from_keys_plain(*args, t_len=t_len)
+        err = max(err, _max_err(got, ref, "B7"))
+        if dtype == torch.bfloat16 and t_len is None:
+            shares = _shares("B7", got, ref,
+                             cross_i2t_from_keys_unrounded_p(*args))
+        del got, ref
     flops = (2.0 * B * heads * T * dk * dh
              + 2.0 * B * L * heads * T * (dk + 2 * dh))
     nbytes = (storage_bytes(*(x[k] for k in ("keys", "wk", "pe", "q", "vt")))
               + B * L * D * x["keys"].element_size())
     return _report("cross_i2t_proj", dtype, err, tol,
                    lambda: cross_i2t_from_keys(*args),
-                   lambda: cross_i2t_from_keys_plain(*args), library,
-                   nbytes, flops, peaks, keys_batch=Bk,
-                   shape=[B, T, L, dk, D])
+                   lambda: cross_i2t_from_keys_plain(*args),
+                   _b7_library(x, heads), nbytes, flops, peaks,
+                   keys_batch=Bk, shape=[B, T, L, dk, D], **shares)
+
+
+def _b8_inputs(dev, dtype, Br):
+    B, L, C = B9_SHAPE["B"], B9_SHAPE["L"], B9_SHAPE["dk"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((B, L, C), generator=gen, device=dev).to(dtype)
+    r = torch.randn((Br, L, C), generator=gen, device=dev).to(dtype)
+    g = torch.randn((C,), generator=gen, device=dev) * 0.1 + 1.0
+    b = torch.randn((C,), generator=gen, device=dev)
+    return x, r, g, b
 
 
 def check_b8(dev, dtype, peaks, tol, Br):
@@ -1000,11 +1071,7 @@ def check_b8(dev, dtype, peaks, tol, Br):
                                               residual_layer_norm_plain)
 
     B, L, C = B9_SHAPE["B"], B9_SHAPE["L"], B9_SHAPE["dk"]
-    gen = torch.Generator(device=dev).manual_seed(8)
-    x = torch.randn((B, L, C), generator=gen, device=dev).to(dtype)
-    r = torch.randn((Br, L, C), generator=gen, device=dev).to(dtype)
-    g = torch.randn((C,), generator=gen, device=dev) * 0.1 + 1.0
-    b = torch.randn((C,), generator=gen, device=dev)
+    x, r, g, b = _b8_inputs(dev, dtype, Br)
     err = _max_err(residual_layer_norm(x, r, g, b),
                    residual_layer_norm_plain(x, r, g, b), "B8")
     lnorm = torch.nn.functional.layer_norm
@@ -1334,26 +1401,53 @@ def check_b12b(dev, dtype, peaks, tol):
                    **shares)
 
 
-def check_b14(dev, dtype, peaks, tol, which):
-    from ovo_tpu_torch.ops.layer_norm import (fits, layer_norm_rows,
-                                              layer_norm_rows_plain)
-
+def _b14_inputs(dev, dtype, which):
     rows, C = B14_SHAPES[which]
     gen = torch.Generator(device=dev).manual_seed(14)
     x = torch.randn((rows, C), generator=gen, device=dev).to(dtype)
     g = torch.randn((C,), generator=gen, device=dev) * 0.1 + 1.0
     b = torch.randn((C,), generator=gen, device=dev)
+    return x, g, b
+
+
+def check_b14(dev, dtype, peaks, tol, which):
+    """B14 at a gated shape, scale / bias in f32 (timed: the path's) and in
+    bf16 (read as they are); bf16 also within ATTN_SHARE of the plain
+    version (the kernel sums the statistics in another order)."""
+    from ovo_tpu_torch.ops.layer_norm import (fits, layer_norm_rows,
+                                              layer_norm_rows_plain)
+
+    rows, C = B14_SHAPES[which]
+    x, g, b = _b14_inputs(dev, dtype, which)
     if not fits(rows, C, x.element_size()):
         raise AssertionError(f"B14: {rows} x {C} is not a gated shape")
-    err = _max_err(layer_norm_rows(x, g, b), layer_norm_rows_plain(x, g, b),
-                   "B14")
+    err, share = 0.0, 0.0
+    for gg, bb in ((g, b), (g.to(torch.bfloat16), b.to(torch.bfloat16))):
+        got, ref = layer_norm_rows(x, gg, bb), layer_norm_rows_plain(x, gg, bb)
+        err = max(err, _max_err(got, ref, "B14"))
+        share = max(share, step_share(got, ref))
+    if dtype == torch.bfloat16 and share > ATTN_SHARE:
+        raise AssertionError(f"B14: {share} of the outputs differ from the "
+                             f"plain version by more than a bf16 step")
     gx, bx = g.to(dtype), b.to(dtype)
-    return _report("layer_norm_rows", dtype, err, tol,
-                   lambda: layer_norm_rows(x, g, b),
-                   lambda: layer_norm_rows_plain(x, g, b),
-                   lambda: torch.nn.functional.layer_norm(x, (C,), gx, bx),
+
+    def kernel():
+        return layer_norm_rows(x, g, b)
+
+    def library():
+        return torch.nn.functional.layer_norm(x, (C,), gx, bx)
+
+    # calls of ~0.02-0.04 ms, mostly host time that jitters by tens of
+    # percent: the medians of 300, and beside them each call's time in a
+    # run of calls back to back
+    return _report("layer_norm_rows", dtype, err, tol, kernel,
+                   lambda: layer_norm_rows_plain(x, g, b), library,
                    storage_bytes(x, g, b) + x.numel() * x.element_size(),
-                   8.0 * rows * C, peaks, case=which, shape=[rows, C])
+                   8.0 * rows * C, peaks, iters=300, case=which,
+                   shape=[rows, C], kernel_run_ms=run_ms(kernel),
+                   library_run_ms=run_ms(library),
+                   **({"step_share": share, "share_limit": ATTN_SHARE}
+                      if dtype == torch.bfloat16 else {}))
 
 
 def check_b11(dev, dtype, peaks, tol, which):
@@ -2757,20 +2851,23 @@ def _is_b12_kernel(name: str) -> bool:
 
 
 def run_kernel_device(dev) -> dict:
-    """B5, B6, B1, B2, B11, B9a, B3, B4, B12a and B12b in bf16 and B10 in
-    f32 at the kernel phase's shapes: the card's kernel time per call beside
-    the library's on the same operands (device_ms): SDPA for B5 (on the
-    rotated heads), B6 (the path's layout, the masks as a boolean mask), B1,
-    B2, B11, B9a (on the per-head views) and B10, the whole function's
-    library route for B3 and B4 (_b3_library, _b4_library), the default
-    route's block half for B12a and B12b."""
+    """B5, B6, B1, B2, B11, B9a, B3, B4, B7, B12a, B12b and B14 in bf16 and
+    B10 in f32 at the kernel phase's shapes: the card's kernel time per call
+    beside the library's on the same operands (device_ms): SDPA for B5 (on
+    the rotated heads), B6 (the path's layout, the masks as a boolean mask),
+    B1, B2, B11, B9a (on the per-head views) and B10, the whole function's
+    library route for B3, B4 and B7 (_b3_library, _b4_library,
+    _b7_library), the default route's block half for B12a and B12b,
+    F.layer_norm for B14."""
     from ovo_tpu_torch.ops.attention import (cross_attention_small_head,
+                                             cross_i2t_from_keys,
                                              cross_i2t_tail_from_keys,
                                              cross_t2i_from_keys,
                                              flash_attention, fused_attention,
                                              packed_heads_attention,
                                              rope_packed_attention,
                                              windowed_fused_attention)
+    from ovo_tpu_torch.ops.layer_norm import layer_norm_rows
     from ovo_tpu_torch.ops.masked_pool import masked_pool
 
     bf, sdpa = torch.bfloat16, torch.nn.functional.scaled_dot_product_attention
@@ -2862,7 +2959,30 @@ def run_kernel_device(dev) -> dict:
             kernel_device_ms=device_ms(lambda: cross_i2t_tail_from_keys(*i2t)),
             library_device_ms=device_ms(_b4_library(x, heads)))
         del x, t2i, i2t
+        # B7 at the 1280^2 decoder's shape (check_b7's): the kq launch and
+        # the tensor-core kernel apart, which the trace must name
+        x = _cross_inputs(dev, bf, bk, B=B9_SHAPE["B"], L=B9_SHAPE["L"])
+        proj = (x["keys"], x["wk"], x["pe"], x["q"], x["vt"], heads)
+        parts = {}
+        out[f"cross_i2t_proj_keys{bk}"] = dict(
+            kernel_device_ms=device_ms(lambda: cross_i2t_from_keys(*proj),
+                                       by_name=parts),
+            kernel_device_ms_by_name=parts,
+            library_device_ms=device_ms(_b7_library(x, heads)))
+        if not any("i2t_mma_kernel" in k for k in parts):
+            raise AssertionError(f"kernel_device: B7 ran {sorted(parts)}, "
+                                 f"not its tensor-core kernel")
+        del x, proj
         torch.cuda.empty_cache()
+    # B14 at its gated shapes (check_b14's, f32 scale / bias) beside
+    # F.layer_norm on bf16 ones
+    for which, (rows, C) in B14_SHAPES.items():
+        x, g, b = _b14_inputs(dev, bf, which)
+        gx, bx = g.to(bf), b.to(bf)
+        out[f"layer_norm_rows_{which}"] = dict(
+            kernel_device_ms=device_ms(lambda: layer_norm_rows(x, g, b)),
+            library_device_ms=device_ms(
+                lambda: torch.nn.functional.layer_norm(x, (C,), gx, bx)))
     return out
 
 
@@ -2991,8 +3111,8 @@ def main(argv) -> int:
     # means over 6400 rows of N(0,1) values, below 1 (step 2^-8): 1e-2; B9b's
     # and B7's over 8 tokens, below 4 (step 2^-6): 3e-2. B8: a LayerNorm
     # times ~1 plus an N(0,1) bias, below 8 (step 2^-5), one f32 value
-    # rounded on both sides: 6e-2. B9a in bf16 also holds ATTN_SHARE, which
-    # its normalized weights left unrounded break.
+    # rounded on both sides: 6e-2. B9a and B7 in bf16 also hold ATTN_SHARE,
+    # which their normalized weights left unrounded break.
     checks += [(check_b9a, f"b9a_kv{b}", 1e-2, {"Bk": b}) for b in (1, 256)]
     checks += [(check_b9b, f"b9b_q{b}", 3e-2, {"Bq": b}) for b in (1, 256)]
     checks += [(check_b7, f"b7_keys{b}", 3e-2, {"Bk": b}) for b in (1, 256)]
@@ -3009,8 +3129,8 @@ def main(argv) -> int:
     # few 2^-8 more: 6e-2. Measured 1.6e-2 on an H100 (first run).
     checks += [(check_b12a, "b12a", 6e-2, {}), (check_b12b, "b12b", 6e-2, {})]
     # B14 in bf16 as B8 (a LayerNorm times ~1 plus an N(0,1) bias, below 8,
-    # one f32 value rounded on both sides): 6e-2. B11 as B2 (both sides
-    # round the normalized weights): 1e-2.
+    # one f32 value rounded on both sides): 6e-2, and ATTN_SHARE. B11 as B2
+    # (both sides round the normalized weights): 1e-2.
     checks += [(check_b14, f"b14_{w}", 6e-2, {"which": w})
                for w in B14_SHAPES]
     checks += [(check_b11, f"b11_{w}", 1e-2, {"which": w})

@@ -7,160 +7,53 @@
 // (csrc/cross_i2t_tail.cu) without the out-projection, residual and
 // LayerNorm.
 //
-// What it computes, for prompt b and image row l (keys[l] of width dk, the
-// query side; Wq (dk, D); D = heads * dh), in the reference's types:
-//   kq[h,t,c] = sum_j k_tok[t, h*dh+j] Wq[c, h*dh+j], rounded to the dtype;
-//   s[h,t]    = (kq[h,t] . keys[l] + k_tok[t, h-block] . pe_q[l, h-block])
-//               * scale in f32, tokens t >= t_len set to -1e30;
-//   p[h,:]    = softmax over the tokens of head h in f32, rounded to the dtype;
-//   out[l, h*dh+j] = sum_t p[h,t] v_tok[t, h*dh+j] in f32, rounded once.
-// That is softmax((keys Wq + pe_q) k_tok^T) v_tok per head with the (B, L, D)
-// projection qq = keys Wq + pe_q never formed.
+// What it computes (cross_i2t_common.cuh has it in full): per prompt and
+// image row, softmax((keys Wq + pe_q) k_tok^T) v_tok per head, as
+// softmax(kq . keys + k_tok . pe_q) with kq = k_tok Wq^T rounded, s in f32,
+// p normalized then rounded, out = p v_tok in f32 rounded once; the (B, L,
+// D) projection qq = keys Wq + pe_q is never formed.
 //
-// What bounds it on an H100: at the 1280^2 AMG shape (256 prompts, L = 6400,
-// dk = 256, D = 128, 8 heads x 8 tokens, bf16) a launch reads 839 MB of
-// per-prompt keys and writes 420 MB (0.38 ms at 3.35 TB/s) for ~57 GFLOP,
-// 54 of them kq . keys over dk. Done with f32 FMAs on the CUDA cores
-// (~0.85 ms at 67 TF/s), so FMA issue and shared-memory traffic bound it.
+// What bounds it on an H100: at the 1280^2 AMG shape (256 prompts, L =
+// 6400, dk = 256, D = 128, 8 heads x 8 tokens, bf16) a launch reads 839 MB
+// of per-prompt keys and writes 420 MB (0.38 ms at 3.35 TB/s) for ~57
+// GFLOP, 54 of them kq . keys over dk (58 us at 989 TF/s): bytes.
 //
-// Design (B4's): two launches on the caller's stream.
-//  1. kq_kernel, one block per prompt: kq for all (token, head) rows, into a
-//     caller-allocated scratch (B, heads * NT, dk) in the working dtype (kq
-//     is rounded to it), formed once per prompt.
-//  2. i2t_kernel, one block of 256 threads per (prompt, 128 image rows): the
-//     prompt's kq (rows padded to dk+4) and tokens are loaded once, then four
-//     32-row tiles stream through. Per tile, the (32 rows x 64 kq rows) score
-//     product is register-tiled (each thread 2 rows x 4 kq rows, four
-//     elements per read); one thread per (row, head), the 32 rows of a head
-//     on consecutive threads, adds the pe term, takes the token softmax and
-//     forms its dh outputs in place of the pe values it alone read; the tile
-//     is then written out row by row, consecutive threads on consecutive
-//     columns. Batch-1 keys (the first two-way layer) or tokens are read
-//     through a batch stride of 0.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// Design: two launches on the caller's stream. kq_kernel
+// (cross_i2t_common.cuh) forms kq once per prompt; then, by dtype:
+//
+// bf16 (i2t_mma_kernel), on the tensor cores: B4's front half. A block of
+// eight warps holds the prompt's kq and the block-diagonal k_tok and v_tok
+// in shared memory (i2t_stage_tokens); each warp takes 16 image rows at a
+// time through its own keys buffer (cp.async, 16-byte copies where pointer
+// and strides allow) into i2t_attn_tile (S, the token softmax, p . v on
+// mma.sync m16n8k16, shared with B4), then rounds attn, writes it over its
+// keys rows and stores it in 16-byte copies. Without B4's Wout (64 KB) and
+// its tail's registers, the block holds sixteen warps at the SAM decoder's
+// widths (dk 256, D 128, 8 heads), which are fixed at compile time as B4's.
+//
+// float32 (i2t_kernel) keeps the first design, f32 FMAs on the CUDA cores
+// (the first design ran bf16 too, at 3.729 ms with per-prompt keys and
+// 3.614 shared at the path shape): one block of 256 threads per (prompt,
+// 128 image rows); the prompt's kq (rows padded to dk+4) and tokens are
+// loaded once, then four 32-row tiles stream through. Per tile, the (32
+// rows x 64 kq rows) score product is register-tiled (each thread 2 rows x
+// 4 kq rows, four elements per read); one thread per (row, head), the 32
+// rows of a head on consecutive threads, adds the pe term, takes the token
+// softmax and forms its dh outputs in place of the pe values it alone
+// read; the tile is then written out row by row, consecutive threads on
+// consecutive columns.
+//
+// Batch-1 keys (the first two-way layer) or tokens are read through a
+// batch stride of 0.
+#include "cross_i2t_common.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int BL = 32;     // image rows per tile
-constexpr int TILES = 4;   // tiles per block
-constexpr int TMAX = 16;   // tokens
-constexpr int RMAX = 64;   // heads * tokens
-constexpr int LDS = RMAX + 1;  // score rows: 32 rows of a column in 32 banks
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T>
-__device__ __forceinline__ float rnd(float x) { return to_f<T>(from_f<T>(x)); }
-
-// four consecutive elements (16-byte aligned for f32, 8-byte for bf16)
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
-// four elements copied as one load / store (16 bytes for f32, 8 for bf16)
-template <typename T>
-struct Vec4;
-template <>
-struct Vec4<float> {
-  typedef float4 type;
-};
-template <>
-struct Vec4<__nv_bfloat16> {
-  typedef uint2 type;
-};
-
-template <typename T>
-__device__ __forceinline__ void copy4(T* dst, const T* src) {
-  typedef typename Vec4<T>::type V;
-  *reinterpret_cast<V*>(dst) = *reinterpret_cast<const V*>(src);
-}
 
 template <typename T>
 __device__ __forceinline__ void store4(T* p, float4 v);
 template <>
 __device__ __forceinline__ void store4<float>(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-template <>
-__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p,
-                                                      float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&lo);
-  u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// kq[b, t*heads + h, c] for one prompt b per block
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-kq_kernel(const T* __restrict__ kt, const T* __restrict__ wq,
-          T* __restrict__ kq, int NT, int heads, int dk, int D,
-          long long t_sb) {
-  const int dh = D / heads, ldw = dh + 1;
-  extern __shared__ float4 smem4[];
-  float* kt_s = reinterpret_cast<float*>(smem4);  // NT x D
-  float* w_s = kt_s + NT * D;                      // dk x ldw: one head of Wq
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const T* ktb = kt + b * t_sb;
-  T* kqb = kq + (long long)b * heads * NT * dk;
-  for (int i = tid; i < NT * D; i += THREADS) kt_s[i] = to_f<T>(ktb[i]);
-  for (int h = 0; h < heads; ++h) {
-    __syncthreads();
-    for (int i = tid; i < dk * dh; i += THREADS) {
-      const int c = i / dh, j = i % dh;
-      w_s[c * ldw + j] = to_f<T>(wq[c * D + h * dh + j]);
-    }
-    __syncthreads();
-    for (int i = tid; i < NT * dk; i += THREADS) {
-      const int t = i / dk, c = i % dk;
-      const float* k = kt_s + t * D + h * dh;
-      const float* w = w_s + c * ldw;
-      float a = 0.f;
-      for (int j = 0; j < dh; ++j) a = fmaf(k[j], w[j], a);
-      kqb[(t * heads + h) * dk + c] = from_f<T>(a);
-    }
-  }
 }
 
 template <typename T>
@@ -314,38 +207,130 @@ i2t_kernel(const T* __restrict__ keys, const T* __restrict__ kq,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* keys, const void* wq, const void* peq,
-                   const void* kt, const void* vt, void* out, T* kq, int B,
-                   int NT, int heads, int t_len, int L, int dk, int D,
-                   float scale, long long k_sb, long long t_sb,
-                   cudaStream_t stream) {
-  const int dh = D / heads;
-  const size_t smem_kq = sizeof(float) * ((size_t)NT * D + dk * (dh + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      kq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_kq);
-  if (err != cudaSuccess) return err;
-  const int nq = t_sb ? B : 1;
-  kq_kernel<T><<<nq, THREADS, smem_kq, stream>>>(
-      static_cast<const T*>(kt), static_cast<const T*>(wq), kq, NT, heads, dk,
-      D, t_sb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+struct I2tProjArgs : I2tArgs {
+  bf16* out;  // (B, L, D)
+  int vs_o;   // copy width (vector_shift) of out's rows
+};
+
+// warps a block: sixteen at the SAM decoder's widths (124 registers a
+// thread, 204 KB of shared memory), twice what B4 holds, to hide more of
+// the keys' loads; eight at the generic widths (up to 206 registers)
+template <int DKC>
+__host__ __device__ constexpr int proj_warps() { return DKC ? 16 : 8; }
+
+// TP, RP, DKC, DC, HC: as i2t_attn_tile's (cross_i2t_common.cuh)
+template <int TP, int RP, int DKC, int DC, int HC>
+__global__ void __launch_bounds__(32 * proj_warps<DKC>(), 1)
+i2t_mma_kernel(I2tProjArgs a) {
+  constexpr int ND = DPAD / 8;     // n8 attention tiles
+  const int dk = DKC ? DKC : a.dk, D = DC ? DC : a.D;
+  const int nw = blockDim.x >> 5;
+  // a warp's buffer: its keys rows (stride LDK), then its attn rows
+  // (stride LDO); both odd 16-byte units
+  const int LDK = dk + 8, LDE = DPAD + 8, LDO = (D + 7) / 8 * 8 + 8;
+  const int LDW = max(LDK, LDO);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* kq_s = reinterpret_cast<bf16*>(smem_raw);  // RP x LDK
+  bf16* kb_s = kq_s + RP * LDK;                    // RP x LDE, k_tok block-diag
+  bf16* vb_s = kb_s + RP * LDE;                    // RP x LDE, v_tok block-diag
+  bf16* ks_s = vb_s + RP * LDE;                    // nw x 16 x LDW
+
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const bf16* kb = a.keys + b * a.k_sb;
+
+  i2t_stage_tokens<TP, RP, DKC, DC, HC>(a, b, kq_s, kb_s, vb_s);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  bf16* ks_w = ks_s + warp * 16 * LDW;
+  const int rows_per_block = nw * TPW * 16;
+  const int per_row = D >> a.vs_o;  // copies a row of out takes
+  for (int tile = 0; tile < TPW; ++tile) {
+    const int l0 = blockIdx.x * rows_per_block + (tile * nw + warp) * 16;
+    if (l0 >= a.L) break;
+    load_rows(ks_w, LDK, kb, dk, l0, 16, a.L, dk, a.vs_k, lane, 32);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncwarp();
+
+    float at[ND][4];
+    i2t_attn_tile<TP, RP, DKC, DC, HC>(a, ks_w, kq_s, kb_s, vb_s, l0, at);
+    // attn rounded once (the reference's astype), over the keys rows every
+    // lane has read, then out in copies of 1 << vs_o elements
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      if (8 * n >= D) break;
+      const int col = 8 * n + 2 * c;
+      *reinterpret_cast<uint32_t*>(ks_w + g * LDO + col) =
+          pack_bf16(at[n][0], at[n][1]);
+      *reinterpret_cast<uint32_t*>(ks_w + (g + 8) * LDO + col) =
+          pack_bf16(at[n][2], at[n][3]);
+    }
+    __syncwarp();
+    bf16* ob = a.out + ((size_t)b * a.L + l0) * D;
+    for (int i = lane; i < 16 * per_row; i += 32) {
+      const int r = i / per_row, col = (i - r * per_row) << a.vs_o;
+      if (l0 + r >= a.L) break;
+      if (a.vs_o == 3)
+        *reinterpret_cast<uint4*>(ob + (size_t)r * D + col) =
+            *reinterpret_cast<const uint4*>(ks_w + r * LDO + col);
+      else
+        *reinterpret_cast<uint2*>(ob + (size_t)r * D + col) =
+            *reinterpret_cast<const uint2*>(ks_w + r * LDO + col);
+    }
+    __syncwarp();  // the buffer is refilled next
+  }
+}
+
+template <int TP, int RP, int DKC, int DC, int HC>
+struct LaunchProj {
+  static cudaError_t run(const I2tProjArgs& a, int B, cudaStream_t stream) {
+    constexpr int nw = proj_warps<DKC>();  // shared memory: 204 / 205 KB
+    const int LDK = a.dk + 8, LDO = (a.D + 7) / 8 * 8 + 8;
+    const size_t smem =
+        sizeof(bf16) * ((size_t)RP * LDK + 2 * (size_t)RP * (DPAD + 8) +
+                        (size_t)nw * 16 * (LDK > LDO ? LDK : LDO));
+    cudaError_t err = cudaFuncSetAttribute(
+        i2t_mma_kernel<TP, RP, DKC, DC, HC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int rows = nw * TPW * 16;
+    dim3 grid((a.L + rows - 1) / rows, B);
+    i2t_mma_kernel<TP, RP, DKC, DC, HC><<<grid, 32 * nw, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
+};
+
+cudaError_t launch_fma(const void* keys, const void* wq, const void* peq,
+                       const void* kt, const void* vt, void* out, float* kq,
+                       int B, int NT, int heads, int t_len, int L, int dk,
+                       int D, float scale, long long k_sb, long long t_sb,
+                       cudaStream_t stream) {
+  cudaError_t err = launch_kq<float>(kt, wq, kq, B, NT, heads, dk, D, t_sb,
+                                     stream);
+  if (err != cudaSuccess) return err;
   const size_t smem =
-      sizeof(T) * (size_t)RMAX * (dk + 4) +
-      sizeof(float) * ((size_t)BL * (dk + 4) + BL * (D + 4) + BL * LDS +
-                       2 * NT * D);
+      sizeof(float) * ((size_t)RMAX * (dk + 4) + BL * (dk + 4) +
+                       BL * (D + 4) + BL * LDS + 2 * NT * D);
   err = cudaFuncSetAttribute(
-      i2t_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      i2t_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((L + BL * TILES - 1) / (BL * TILES), B);
   const long long q_sb = t_sb ? (long long)heads * NT * dk : 0;
-  i2t_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(keys), kq, static_cast<const T*>(peq),
-      static_cast<const T*>(kt), static_cast<const T*>(vt),
-      static_cast<T*>(out), NT, heads, t_len, L, dk, D, scale, k_sb, t_sb,
+  i2t_kernel<float><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(keys), kq, static_cast<const float*>(peq),
+      static_cast<const float*>(kt), static_cast<const float*>(vt),
+      static_cast<float*>(out), NT, heads, t_len, L, dk, D, scale, k_sb, t_sb,
       q_sb);
   return cudaGetLastError();
 }
@@ -356,8 +341,10 @@ cudaError_t launch(const void* keys, const void* wq, const void* peq,
 // (dk, D); peq (L, D); kt, vt (B or 1, NT, D) at t_sb; out (B, L, D); kq a
 // scratch of (B, or 1 when t_sb is 0) x heads * NT x dk elements of the
 // dtype. Needs NT <= 16, heads * NT <= 64, dk % 16 == 0, dk <= 256,
-// (D / heads) % 4 == 0, D <= 256 and 16-byte aligned pointers. dtype: 0 =
-// float32, 1 = bfloat16. Returns the cudaError_t of the launches.
+// (D / heads) % 4 == 0; in bf16 also D <= 128 and a 4-byte aligned peq
+// (keys at any alignment), in f32 D <= 256 and 16-byte aligned pointers.
+// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
+// launches.
 extern "C" int ovo_cross_i2t_proj(const void* keys, const void* wq,
                                   const void* peq, const void* kt,
                                   const void* vt, void* out, void* kq, int B,
@@ -370,13 +357,25 @@ extern "C" int ovo_cross_i2t_proj(const void* keys, const void* wq,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(keys, wq, peq, kt, vt, out,
-                              static_cast<float*>(kq), B, NT, heads, t_len, L,
-                              dk, D, scale, k_sb, t_sb, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(keys, wq, peq, kt, vt, out,
-                                      static_cast<__nv_bfloat16*>(kq), B, NT,
-                                      heads, t_len, L, dk, D, scale, k_sb,
-                                      t_sb, s);
+    return (int)launch_fma(keys, wq, peq, kt, vt, out,
+                           static_cast<float*>(kq), B, NT, heads, t_len, L,
+                           dk, D, scale, k_sb, t_sb, s);
+  if (dtype == 1) {
+    if (D > DPAD || reinterpret_cast<uintptr_t>(peq) % 4)
+      return (int)cudaErrorInvalidValue;
+    I2tProjArgs a;
+    fill_i2t_args(a, keys, kq, peq, kt, vt, NT, heads, t_len, L, dk, D,
+                  scale, k_sb, t_sb);
+    a.out = static_cast<bf16*>(out);
+    const long long so[1] = {D};
+    const void* optr = out;
+    // D is a multiple of 4: copies of 8 elements, or of 4
+    a.vs_o = vector_shift(&optr, 1, so, 1, D);
+    if (a.vs_o < 2) return (int)cudaErrorInvalidValue;
+    cudaError_t err = launch_kq<bf16>(kt, wq, static_cast<bf16*>(kq), B, NT,
+                                      heads, dk, D, t_sb, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_i2t<LaunchProj>(a, B, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

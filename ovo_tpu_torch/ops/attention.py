@@ -472,9 +472,10 @@ def packed_heads_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 CROSS_MAX_ROWS = 64      # heads * tokens
 CROSS_MAX_TOKENS = 16    # B4's tokens per head
 CROSS_MAX_DK = 256
-# D at most in bf16 (the tensor-core kernels' shared-memory tiles): B3, B4
+# D at most in bf16 (the tensor-core kernels' shared-memory tiles): B3; B4
+# and B7
 T2I_MAX_D_BF16 = 256
-I2T_TAIL_MAX_D_BF16 = 128
+I2T_MAX_D_BF16 = 128
 
 
 def _heads_w(w: torch.Tensor, heads: int) -> torch.Tensor:
@@ -713,8 +714,8 @@ def cross_i2t_tail_from_keys(keys: torch.Tensor, wq: torch.Tensor,
             heads, eps=eps, t_len=t_len)
     B, dev, dt, wq, pe, kq = _i2t_kernel_operands(
         "cross_i2t_tail", keys, wq, pe_q, kk_tok, vv_tok, heads)
-    if dt == torch.bfloat16 and D > I2T_TAIL_MAX_D_BF16:
-        raise ValueError(f"cross_i2t_tail takes D <= {I2T_TAIL_MAX_D_BF16} "
+    if dt == torch.bfloat16 and D > I2T_MAX_D_BF16:
+        raise ValueError(f"cross_i2t_tail takes D <= {I2T_MAX_D_BF16} "
                          f"in bf16, got {D}")
     if dt == torch.float32:
         keys = _aligned16(keys)  # the f32 kernel reads keys 16 bytes a load
@@ -743,6 +744,14 @@ def cross_i2t_tail_from_keys(keys: torch.Tensor, wq: torch.Tensor,
     return out
 
 
+# ovo_cross_i2t_proj(keys, wq, peq, kt, vt, out, kq, B, NT, heads, t_len, L,
+# dk, D, scale, k_sb, t_sb, dtype)
+_I2T_PROJ = cuda_build.Entry(
+    "cross_i2t_proj", "ovo_cross_i2t_proj",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int])
+
+
 def cross_i2t_from_keys(keys: torch.Tensor, wq: torch.Tensor,
                         pe_q: torch.Tensor, kk_tok: torch.Tensor,
                         vv_tok: torch.Tensor, heads: int,
@@ -764,22 +773,18 @@ def cross_i2t_from_keys(keys: torch.Tensor, wq: torch.Tensor,
         raise ValueError(f"cross_i2t_proj takes D <= {CROSS_MAX_DK}, got {D}")
     B, dev, dt, wq, pe, kq = _i2t_kernel_operands(
         "cross_i2t_proj", keys, wq, pe_q, kk_tok, vv_tok, heads)
-    if keys.data_ptr() % 16:
-        raise ValueError("cross_i2t_proj: keys must be 16-byte aligned")
+    if dt == torch.bfloat16 and D > I2T_MAX_D_BF16:
+        raise ValueError(f"cross_i2t_proj takes D <= {I2T_MAX_D_BF16} in "
+                         f"bf16, got {D}")
+    if dt == torch.float32:
+        keys = _aligned16(keys)  # the f32 kernel reads keys 16 bytes a load
     L, dk = keys.shape[1], keys.shape[2]
     out = torch.empty((B, L, D), dtype=dt, device=dev)
-    fn = cuda_build.library("cross_i2t_proj").ovo_cross_i2t_proj
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(keys.data_ptr(), wq.data_ptr(), pe.data_ptr(),
-                 kk_tok.data_ptr(), vv_tok.data_ptr(), out.data_ptr(),
-                 kq.data_ptr(), B, T, heads, tl, L, dk, D,
-                 float((D // heads) ** -0.5), _batch_stride(keys),
-                 _batch_stride(kk_tok), _DTYPES[dt], stream)
+    err = _I2T_PROJ(dev.index, keys.data_ptr(), wq.data_ptr(), pe.data_ptr(),
+                    kk_tok.data_ptr(), vv_tok.data_ptr(), out.data_ptr(),
+                    kq.data_ptr(), B, T, heads, tl, L, dk, D,
+                    float((D // heads) ** -0.5), _batch_stride(keys),
+                    _batch_stride(kk_tok), _DTYPES[dt])
     cuda_build.check(err, "cross_i2t_proj")
     cuda_build.count_launch("cross_i2t_proj")
     return out

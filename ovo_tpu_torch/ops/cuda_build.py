@@ -9,7 +9,9 @@ caller builds every kernel up front with :func:`build_all` (all ``nvcc``
 processes started together).
 
 Every wrapper counts its kernel launches here (:func:`count_launch`), so a
-run can show that the main path went through the kernels.
+run can show that the main path went through the kernels. A wrapper that
+calls its C entry point through an :class:`Entry` pays for the ctypes
+signature once, when the library loads, not on every launch.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ovo_tpu_torch"
@@ -124,3 +128,49 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"ovo_tpu_torch: {name} launch failed with "
                            f"cudaError_t {err}")
+
+
+# The device and stream queries of Entry: torch's private raw-stream query
+# builds no Stream object per launch; where a torch build lacks either
+# private name, the public calls stand in (a few microseconds more a call).
+_current_device = getattr(torch._C, "_cuda_getDevice", None) \
+    or torch.cuda.current_device
+_current_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+    or (lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+class Entry:
+    """The C entry point ``symbol`` of kernel library ``lib``, its argument
+    types (``argtypes``, the trailing stream left out) and ``int`` result
+    set once, when the library is first loaded (built on first use, as
+    :func:`library`). ``entry(index, *args)`` calls it on the current
+    stream of CUDA device ``index`` and returns its ``cudaError_t``; the
+    device is made current for the call only when it is not already. With
+    ``stream=False`` the entry point takes no stream (a host-side query):
+    ``entry.fn(*args)`` calls it."""
+
+    __slots__ = ("lib", "symbol", "argtypes", "_fn")
+
+    def __init__(self, lib: str, symbol: str, argtypes: Sequence, *,
+                 stream: bool = True):
+        self.lib, self.symbol = lib, symbol
+        self.argtypes = [*argtypes, *([ctypes.c_void_p] if stream else [])]
+        self._fn = None
+
+    @property
+    def fn(self):
+        """The ctypes function, its signature set (loads the library)."""
+        if self._fn is None:
+            fn = getattr(library(self.lib), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, index: int, *args) -> int:
+        fn = self.fn
+        # the device is initialized: it holds the caller's tensors
+        if index == _current_device():
+            return fn(*args, _current_raw_stream(index))
+        with torch.cuda.device(index):
+            return fn(*args, _current_raw_stream(index))

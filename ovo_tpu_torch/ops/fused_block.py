@@ -49,17 +49,19 @@ MAX_TOKENS = 1024
 _QKV_ROPE = 1
 
 
-def _entry(name: str, n_ptrs: int, n_ints: int, *, routes: bool = False):
-    """The C entry point ``ovo_<name>`` of kernel ``name`` (pointers, ints,
-    then the stream), or with ``routes`` its route query
-    ``ovo_<name>_routes`` (pointers, ints), its argument types set once."""
-    symbol = f"ovo_{name}_routes" if routes else f"ovo_{name}"
-    fn = getattr(cuda_build.library(name), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
-            + ([] if routes else [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+# the route queries (host side, no stream) and the two launches
+_MLP_ROUTES = cuda_build.Entry(
+    "fused_mlp_block", "ovo_fused_mlp_block_routes",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4, stream=False)
+_ATTN_ROUTES = cuda_build.Entry(
+    "fused_attn_block", "ovo_fused_attn_block_routes",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4, stream=False)
+_MLP_BLOCK = cuda_build.Entry(
+    "fused_mlp_block", "ovo_fused_mlp_block",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6)
+_ATTN_BLOCK = cuda_build.Entry(
+    "fused_attn_block", "ovo_fused_attn_block",
+    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8)
 
 
 def mlp_block_routes(x: torch.Tensor, fc_w: torch.Tensor,
@@ -70,7 +72,7 @@ def mlp_block_routes(x: torch.Tensor, fc_w: torch.Tensor,
     and the chunk multiples of its k step, aligned weights) or ``"fma"``
     (f32 FMAs on the CUDA cores: float32 and the other widths)."""
     D, hidden = fc_w.shape
-    bits = _entry("fused_mlp_block", 3, 4, routes=True)(
+    bits = _MLP_ROUTES.fn(
         x.data_ptr(), fc_w.data_ptr(), proj_w.data_ptr(), D, hidden,
         min(chunk, hidden), _DTYPES[x.dtype])
     return dict(fc="mma" if bits & 1 else "fma",
@@ -88,7 +90,7 @@ def attn_block_routes(x: torch.Tensor, w_heads: torch.Tensor,
     (B5's two-pass tensor-core kernel: bf16, not causal, hd a multiple of
     16) or ``"fma"``; ``out``: ``"mma"`` or ``"fma"``, as for B12b."""
     D = w_heads.shape[1]
-    bits = _entry("fused_attn_block", 3, 4, routes=True)(
+    bits = _ATTN_ROUTES.fn(
         x.data_ptr(), w_heads.data_ptr(), ow_heads.data_ptr(), D, n_heads,
         int(causal), _DTYPES[x.dtype])
     return dict(qkv="mma_rope" if bits & _QKV_ROPE else "fma",
@@ -217,16 +219,12 @@ def fused_attn_block(x: torch.Tensor, w_heads: torch.Tensor,
     if attn_block_routes(x, w_heads, ow_heads, n_heads=n_heads,
                          causal=causal)["qkv"] == "fma":
         qkv32 = torch.empty((M, 3 * D), dtype=torch.float32, device=dev)
-    fn = _entry("fused_attn_block", 14, 8)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), w_heads.data_ptr(), b_heads.data_ptr(),
-                 ow_heads.data_ptr(), out_b.data_ptr(), ln_scale.data_ptr(),
-                 ln_bias.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                 out.data_ptr(), lnx,
-                 None if qkv32 is None else qkv32.data_ptr(), packed, oh, B,
-                 L, D, n_heads, int(L_real), int(causal), int(use_rope),
-                 _DTYPES[dt], stream)
+    err = _ATTN_BLOCK(
+        dev.index, x.data_ptr(), w_heads.data_ptr(), b_heads.data_ptr(),
+        ow_heads.data_ptr(), out_b.data_ptr(), ln_scale.data_ptr(),
+        ln_bias.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+        lnx, None if qkv32 is None else qkv32.data_ptr(), packed, oh, B, L,
+        D, n_heads, int(L_real), int(causal), int(use_rope), _DTYPES[dt])
     cuda_build.check(err, "fused_attn_block")
     cuda_build.count_launch("fused_attn_block")
     return out
@@ -305,13 +303,11 @@ def fused_mlp_block(x: torch.Tensor, fc_w: torch.Tensor, fc_b: torch.Tensor,
     # scratch: lnx (M, D) and h (M, hidden) in one allocation
     work = torch.empty(M * (D + hidden), dtype=dt, device=dev)
     lnx, h = work.data_ptr(), work.data_ptr() + M * D * work.element_size()
-    fn = _entry("fused_mlp_block", 10, 6)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), fc_w.data_ptr(), fc_b.data_ptr(),
-                 proj_w.data_ptr(), proj_b.data_ptr(), ln_scale.data_ptr(),
-                 ln_bias.data_ptr(), out.data_ptr(), lnx, h, M, D, hidden,
-                 chunk, _ACTS[act], _DTYPES[dt], stream)
+    err = _MLP_BLOCK(
+        dev.index, x.data_ptr(), fc_w.data_ptr(), fc_b.data_ptr(),
+        proj_w.data_ptr(), proj_b.data_ptr(), ln_scale.data_ptr(),
+        ln_bias.data_ptr(), out.data_ptr(), lnx, h, M, D, hidden, chunk,
+        _ACTS[act], _DTYPES[dt])
     cuda_build.check(err, "fused_mlp_block")
     cuda_build.count_launch("fused_mlp_block")
     return out

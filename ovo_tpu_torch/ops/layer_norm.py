@@ -74,6 +74,20 @@ def fits(rows: int, c: int, itemsize: int) -> bool:
         is not None
 
 
+# ovo_layer_norm_rows(x, scale, bias, out, rows, C, eps, dtype, sdtype)
+_LN_ROWS = cuda_build.Entry(
+    "residual_layer_norm", "ovo_layer_norm_rows",
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                             ctypes.c_int, ctypes.c_int])
+
+
+# ovo_residual_layer_norm(x, res, scale, bias, out, B, L, C, r_sb, eps, dtype)
+_RES_LN = cuda_build.Entry(
+    "residual_layer_norm", "ovo_residual_layer_norm",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_int])
+
+
 def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis of ``x`` (any leading shape), scale /
@@ -81,41 +95,43 @@ def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
     CPU tensors run :func:`layer_norm_rows_plain`; CUDA tensors launch
     kernel B14 (``csrc/residual_layer_norm.cu``, ``ovo_layer_norm_rows``)
-    or raise."""
+    or raise. The kernel reads f32 or bf16 scale / bias as they are (the
+    two in one dtype; any other pair is cast to f32 first)."""
     if x.dim() < 1:
         raise ValueError("layer_norm_rows: x needs a last axis")
     C = x.shape[-1]
     if scale.shape != (C,) or bias.shape != (C,):
         raise ValueError(f"layer_norm_rows: scale / bias must be ({C},)")
-    if x.device.type == "cpu":
-        return layer_norm_rows_plain(x, scale, bias, eps)
-    if x.device.type != "cuda" or x.dtype not in _DTYPES:
-        raise ValueError(f"layer_norm_rows: kernel takes f32 / bf16 CUDA "
-                         f"tensors, got {x.dtype} on {x.device}")
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return layer_norm_rows_plain(x, scale, bias, eps)
+        raise ValueError(f"layer_norm_rows: kernel takes CUDA tensors, got "
+                         f"{x.device}")
+    dt = _DTYPES.get(x.dtype)
+    if dt is None:
+        raise ValueError(f"layer_norm_rows: kernel takes f32 / bf16, got "
+                         f"{x.dtype}")
     if C % 4 or C > ROWS_MAX_C:
         raise ValueError(f"layer_norm_rows: C must be a multiple of 4 up to "
                          f"{ROWS_MAX_C}, got {C}")
     if not x.is_contiguous():
         raise ValueError("layer_norm_rows: x must be contiguous")
-    g, b = scale.float().contiguous(), bias.float().contiguous()
-    if g.device != x.device or b.device != x.device:
+    if scale.dtype != bias.dtype or scale.dtype not in _DTYPES:
+        scale, bias = scale.float(), bias.float()
+    scale, bias = scale.contiguous(), bias.contiguous()
+    index = x.get_device()
+    if scale.get_device() != index or bias.get_device() != index:
         raise ValueError(f"layer_norm_rows: scale / bias must be on "
                          f"{x.device}")
-    if any(t.data_ptr() % 16 for t in (x, g, b)):
-        raise ValueError("layer_norm_rows: inputs must be 16-byte aligned")
     out = torch.empty_like(x)
+    px, pg, pb = x.data_ptr(), scale.data_ptr(), bias.data_ptr()
+    if (px | pg | pb) % 16:
+        raise ValueError("layer_norm_rows: inputs must be 16-byte aligned")
     if x.numel() == 0:
         return out
-    fn = cuda_build.library("residual_layer_norm").ovo_layer_norm_rows
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 x.numel() // C, C, float(eps), _DTYPES[x.dtype], stream)
-    cuda_build.check(err, "layer_norm_rows")
+    cuda_build.check(_LN_ROWS(index, px, pg, pb, out.data_ptr(),
+                              x.numel() // C, C, float(eps), dt,
+                              _DTYPES[scale.dtype]), "layer_norm_rows")
     cuda_build.count_launch("layer_norm_rows")
     return out
 
@@ -157,16 +173,10 @@ def residual_layer_norm(x: torch.Tensor, res: torch.Tensor,
         raise ValueError("residual_layer_norm: inputs must be 16-byte "
                          "aligned")
     out = torch.empty_like(x)
-    fn = cuda_build.library("residual_layer_norm").ovo_residual_layer_norm
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     r_sb = L * C if res.shape[0] > 1 else 0
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), res.data_ptr(), g.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), B, L, C, r_sb, float(eps), _DTYPES[x.dtype],
-                 stream)
-    cuda_build.check(err, "residual_layer_norm")
+    cuda_build.check(_RES_LN(x.get_device(), x.data_ptr(), res.data_ptr(),
+                             g.data_ptr(), b.data_ptr(), out.data_ptr(), B, L,
+                             C, r_sb, float(eps), _DTYPES[x.dtype]),
+                     "residual_layer_norm")
     cuda_build.count_launch("residual_layer_norm")
     return out

@@ -1,19 +1,21 @@
 """The share statistic that chip_smoke.py and the card tests hold kernels
 B1 (flash_attention), B2 (windowed_fused_attention), B11
-(packed_heads_attention), B3 (cross_t2i), B4 (cross_i2t_tail), B5
-(rope_packed_attention), B6 (masked_pool), B9a (cross_small_head t2i) and
-B10 (fused_attention) to in bf16, beside their max-abs limits: the share
-of outputs that differ from the plain version by more than one bf16 step
-at the plain output's magnitude, at most ``ATTN_SHARE`` (``B3_SHARE`` for
-B3, whose output dilutes a weight's rounding over dk products).
+(packed_heads_attention), B3 (cross_t2i), B4 (cross_i2t_tail), B7
+(cross_i2t_proj), B5 (rope_packed_attention), B6 (masked_pool), B9a
+(cross_small_head t2i) and B10 (fused_attention) to in bf16, beside
+their max-abs limits: the share of outputs that differ from the plain
+version by more than one bf16 step at the plain output's magnitude, at
+most ``ATTN_SHARE`` (``B3_SHARE`` for B3, whose output dilutes a weight's
+rounding over dk products).
 
 On the CPU, at the main paths' head sizes and key counts: a reordered f32
-sum of the right function (keys, or B4's tokens, permuted), and B1's p_hi
-+ p_lo split of its f32 weights (the kernel's p . v), stay under the limit;
+sum of the right function (keys, or B4's and B7's tokens, permuted), B1's
+p_hi + p_lo split of its f32 weights (the kernel's p . v) and B7's mma
+chains, stay under the limit;
 the functions the kernels must not compute break it. Those are B1 with its
 weights rounded once to bf16 (which the max-abs limit alone passes), B2 /
-B11 with exp(s - m) rounded before it is normalized, B3 and B5 with their
-normalized weights left unrounded, B4 with attn left unrounded, B6
+B11 with exp(s - m) rounded before it is normalized, B3, B5 and B7 with
+their normalized weights left unrounded, B4 with attn left unrounded, B6
 with its f32 weights rounded once (the reference's XLA route), and B9a with
 its normalized weights left unrounded.
 
@@ -161,6 +163,71 @@ def test_cross_i2t_tail_share_tells_unrounded_attn_apart(B, Bk):
     share = chip_smoke.step_share
     assert share(reordered, ref) <= chip_smoke.ATTN_SHARE
     wrong = chip_smoke.cross_i2t_tail_unrounded_attn(*args)
+    assert share(wrong, ref) > chip_smoke.ATTN_SHARE
+
+
+def _toward_zero(t):
+    """f64 t rounded to f32 toward zero."""
+    r = t.float()
+    return torch.where(r.double().abs() > t.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _cross_i2t_mma(keys, wq, pe_q, kk_tok, vv_tok, heads, truncate):
+    """B7's bf16 arithmetic as its tensor-core kernel does it: s summed as
+    the mma chain sums it, dk in steps of 16 products, then the head's 16
+    pe_q columns (one more mma), each step's exact sum rounded to f32 to
+    nearest or (``truncate``) toward zero, the way the mma accumulates;
+    p normalized, then rounded; p . v_tok one mma a head (8 tokens)."""
+    L, dk = keys.shape[1], keys.shape[2]
+    Bt, T, D = kk_tok.shape
+    B = max(keys.shape[0], Bt)
+    dh = D // heads
+    to_f32 = _toward_zero if truncate else (lambda t: t.float())
+    kh = kk_tok.float().reshape(Bt, T, heads, dh)
+    kq = torch.einsum("bthj,chj->bhtc", kh,
+                      wq.float().reshape(dk, heads, dh)).to(BF).float()
+    kf = keys.float()[:, None]
+    s = None
+    for k0 in range(0, dk, 16):
+        blk = (kq[..., k0:k0 + 16].double()
+               @ kf[..., k0:k0 + 16].transpose(-1, -2).double())
+        s = to_f32(blk if s is None else s.double() + blk)
+    pe = pe_q.float().reshape(L, heads, dh)
+    s = to_f32(s.double() + torch.einsum("bthj,lhj->bhtl", kh.double(),
+                                         pe.double())) * dh ** -0.5
+    p = torch.softmax(s, dim=2).to(BF).float()
+    vh = vv_tok.float().reshape(Bt, T, heads, dh).expand(B, T, heads, dh)
+    attn = to_f32(torch.einsum("bhtl,bthj->blhj", p.double(), vh.double()))
+    return attn.reshape(B, L, D).to(BF)
+
+
+@pytest.mark.parametrize("B,Bk", [(4, 4), (8, 1)])
+def test_cross_i2t_proj_share_tells_unrounded_weights_apart(B, Bk):
+    """B7 at the decoder's widths (8 heads x 8 tokens, D 128, dk 256) over
+    512 image rows, per-prompt and shared keys: tokens permuted (with their
+    k and v rows) and the tensor-core kernel's mma chains over the whole of
+    dk (summed from zero once, to nearest or toward zero; 4.9e-5 at most in
+    a CPU run) stay under ATTN_SHARE; the normalized weights left in f32
+    (0.079-0.082) break it, which the max-abs limit (3e-2) alone passes."""
+    heads, T, L, D, dk = 8, 8, 512, 128, 256
+    rng = np.random.default_rng(80 + Bk)
+    keys = _bf16(rng, Bk, L, dk)
+    wq = (_f32(rng, dk, D) * dk ** -0.5).to(BF)
+    pe, kt, vt = _bf16(rng, 1, L, D), _bf16(rng, B, T, D), _bf16(rng, B, T, D)
+    args = (keys, wq, pe, kt, vt, heads)
+    ref = A.cross_i2t_from_keys_plain(*args)
+    perm = torch.from_numpy(rng.permutation(T))
+    reordered = A.cross_i2t_from_keys_plain(keys, wq, pe, kt[:, perm],
+                                            vt[:, perm], heads)
+    share = chip_smoke.step_share
+    assert share(reordered, ref) <= chip_smoke.ATTN_SHARE
+    for truncate in (False, True):
+        mma = _cross_i2t_mma(*args, truncate=truncate)
+        assert float((mma.float() - ref.float()).abs().max()) <= 3e-2
+        assert share(mma, ref) <= chip_smoke.ATTN_SHARE / 20
+    wrong = chip_smoke.cross_i2t_from_keys_unrounded_p(*args)
+    assert float((wrong.float() - ref.float()).abs().max()) <= 3e-2
     assert share(wrong, ref) > chip_smoke.ATTN_SHARE
 
 

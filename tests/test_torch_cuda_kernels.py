@@ -620,15 +620,29 @@ def test_cross_small_head_i2t_kernel_matches_plain(cuda_device, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
 def test_cross_i2t_proj_kernel_matches_plain(cuda_device, dtype, tol):
+    """B4's shapes (test_cross_i2t_tail_kernel_matches_plain): the bf16
+    kernel is B4's front half (the decoder's widths, 16 tokens a head, 2, 3
+    and 5 tokens, score columns past 64, dk 128, D 72 / 80 / 96), and also
+    holds ATTN_SHARE; keys at an odd element offset are taken."""
     rng = np.random.default_rng(30)
-    for Bt, Bk, T, t_len, L in ((3, 1, 8, None, 100), (3, 3, 8, 6, 300),
-                                (1, 3, 5, 4, 130)):
-        x = _cross_args(rng, cuda_device, dtype, Bt, Bk, T, L)
+    for Bt, Bk, T, t_len, heads, L, dk, D in (
+            (3, 1, 8, None, 8, 100, 256, 128), (3, 3, 8, 6, 8, 300, 256, 128),
+            (1, 3, 5, 4, 8, 130, 256, 128), (2, 2, 8, None, 8, 4096, 256, 128),
+            (3, 3, 8, 7, 8, 300, 128, 128), (2, 1, 16, 11, 4, 130, 256, 128),
+            (2, 2, 5, None, 8, 64, 128, 128), (2, 2, 2, None, 8, 130, 128, 128),
+            (2, 1, 3, 2, 8, 100, 256, 128), (2, 2, 5, 4, 12, 130, 256, 96),
+            (1, 2, 9, 7, 5, 64, 128, 80), (2, 2, 8, 5, 6, 70, 256, 72)):
+        x = _cross_args(rng, cuda_device, dtype, Bt, Bk, T, L, heads=heads,
+                        dk=dk, D=D)
         vv = x["q"].flip(1).contiguous()
-        args = (x["keys"], x["wk"], x["pe"], x["q"], vv, 8)
+        args = (x["keys"], x["wk"], x["pe"], x["q"], vv, heads)
         got = A.cross_i2t_from_keys(*args, t_len=t_len)
         ref = A.cross_i2t_from_keys_plain(*args, t_len=t_len)
+        assert got.shape == ref.shape
         assert _err(got, ref) <= tol
+        assert _shares_ok(got, ref, dtype)
+    got = A.cross_i2t_from_keys(_misaligned(args[0]), *args[1:])
+    assert _err(got, A.cross_i2t_from_keys_plain(*args)) <= tol
 
 
 @pytest.mark.cuda
@@ -667,22 +681,60 @@ def test_residual_layer_norm_kernel_matches_plain(cuda_device, dtype, tol):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
+def test_entry_launches_on_the_current_device_and_stream(cuda_device):
+    """cuda_build.Entry's device and stream queries (torch's private
+    raw-stream query where this torch has it) name what torch.cuda does,
+    on the default stream and inside a side stream, whose launch then
+    runs there."""
+    from ovo_tpu_torch.ops import cuda_build
+    from ovo_tpu_torch.ops.layer_norm import (layer_norm_rows,
+                                              layer_norm_rows_plain)
+
+    index = torch.cuda.current_device()
+    assert cuda_build._current_device() == index
+    assert cuda_build._current_raw_stream(index) == \
+        torch.cuda.current_stream(index).cuda_stream
+    x = torch.randn((1024, 1024), device=cuda_device)
+    g, b = torch.ones(1024, device=cuda_device), torch.zeros(
+        1024, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert cuda_build._current_raw_stream(index) == side.cuda_stream
+        got = layer_norm_rows(x, g, b)
+    torch.cuda.current_stream().wait_stream(side)
+    assert _err(got, layer_norm_rows_plain(x, g, b)) <= 1e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 6e-2)])
 def test_layer_norm_rows_kernel_matches_plain(cuda_device, dtype, tol):
+    """The gated widths on their fixed-width kernel (PE's LayerNorm rows,
+    Hiera-L's stage 4 at 1152, whose bf16 rows with bf16 scale / bias take
+    half-warps: an odd row count leaves the last half-warp idle), the other
+    widths on the generic one (a ViT-H-14 width with a leading shape, 768,
+    2048, a narrow odd one), scale / bias in f32 and in bf16; bf16 also
+    within ATTN_SHARE."""
+    from ovo_tpu_torch.ops import cuda_build
     from ovo_tpu_torch.ops.layer_norm import (layer_norm_rows,
                                               layer_norm_rows_plain)
 
     rng = np.random.default_rng(32)
-    # PE's LayerNorm rows, Hiera-L's stage 4 (C 1152: the wide rows), a
-    # ViT-H-14 width with a leading shape, a narrow odd one
-    for shape in ((4088, 1024), (1024, 1152), (7, 5, 1280), (33, 68)):
+    for shape in ((4088, 1024), (1024, 1152), (1023, 1152), (3, 7, 1152),
+                  (5, 1024), (7, 5, 1280), (9, 768), (33, 2048), (33, 68)):
         C = shape[-1]
         x = _dev(rng.standard_normal(shape), cuda_device, dtype)
-        g = _dev(rng.random(C) + 0.5, cuda_device, torch.float32)
-        b = _dev(rng.standard_normal(C), cuda_device, torch.float32)
-        assert _err(layer_norm_rows(x, g, b),
-                    layer_norm_rows_plain(x, g, b)) <= tol
+        for affine in (torch.float32, torch.bfloat16):
+            g = _dev(rng.random(C) + 0.5, cuda_device, affine)
+            b = _dev(rng.standard_normal(C), cuda_device, affine)
+            cuda_build.reset_launch_counts()
+            got = layer_norm_rows(x, g, b)
+            assert cuda_build.launch_counts()["layer_norm_rows"] == 1
+            ref = layer_norm_rows_plain(x, g, b)
+            assert got.shape == x.shape and got.dtype == x.dtype
+            assert _err(got, ref) <= tol
+            assert _shares_ok(got, ref, dtype)
 
 
 @pytest.mark.cuda

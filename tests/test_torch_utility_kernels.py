@@ -15,6 +15,8 @@ decoder with its tail replaced by the interpreted ``fused_mask_tail``. The
 CUDA kernels are held against these plain versions in
 ``tests/test_torch_cuda_kernels.py``, on the card.
 """
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -82,6 +84,35 @@ def test_layer_norm_rows_plain_matches_pallas(rows, c, dtype):
                                atol=3e-2 if bf else 1e-5)
 
 
+# the gated widths (PE's 7 x 584 rows at C 1024, Hiera-L's stage 4 at 1152)
+# through leading shapes, with scale / bias in bf16 as well as f32: the
+# kernel reads a bf16 affine as it is, the Pallas kernel and the plain
+# version widen it to f32 (exactly)
+@pytest.mark.parametrize("shape,dtype,affine", [
+    ((4, 256, 1152), "bfloat16", "bfloat16"),
+    ((7, 584, 1024), "bfloat16", "bfloat16"),
+    ((1024, 1152), "float32", "bfloat16"),
+    ((2, 512, 1152), "bfloat16", "float32")])
+def test_layer_norm_rows_gated_widths_match_pallas(shape, dtype, affine):
+    c = shape[-1]
+    rng = np.random.default_rng(c + len(shape))
+    x = jnp.asarray(rng.standard_normal(shape), dtype)
+    scale = jnp.asarray(rng.standard_normal((c,)) * 0.1 + 1.0, affine)
+    bias = jnp.asarray(rng.standard_normal((c,)), affine)
+    ref = jln._ln_call(x.reshape(-1, c), scale, bias, eps=1e-5,
+                       interpret=True).reshape(shape)
+    xt = t(np.asarray(x.astype(jnp.float32))).to(getattr(torch, dtype))
+    st, bt = (t(np.asarray(v.astype(jnp.float32))).to(getattr(torch, affine))
+              for v in (scale, bias))
+    got = tln.layer_norm_rows(xt, st, bt)
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    bf = dtype == "bfloat16"
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               rtol=1e-2 if bf else 1e-6,
+                               atol=3e-2 if bf else 1e-5)
+
+
 def test_layer_norm_rows_any_leading_shape_and_gate():
     """(7, 584, 1024) reads as 4088 rows; the shapes the port drives B14 at
     pass the reference's gate ``fits``, which refuses a C that is not a
@@ -100,6 +131,20 @@ def test_layer_norm_rows_any_leading_shape_and_gate():
     cuda_build.reset_launch_counts()
     tln.layer_norm_rows(x, g, b)
     assert cuda_build.launch_counts()["layer_norm_rows"] == 0
+
+
+@pytest.mark.parametrize("stream", [True, False])
+def test_entry_sets_its_signature_without_loading(stream):
+    """A cuda_build.Entry holds its C signature (the stream last, unless
+    it takes none) and loads no library until it is first called: the
+    wrappers' entries are made at import, where no kernel is built."""
+    entry = cuda_build.Entry("residual_layer_norm", "ovo_layer_norm_rows",
+                             [ctypes.c_void_p, ctypes.c_int], stream=stream)
+    assert entry.argtypes == [ctypes.c_void_p, ctypes.c_int] + (
+        [ctypes.c_void_p] if stream else [])
+    assert entry._fn is None
+    assert callable(cuda_build._current_device)
+    assert callable(cuda_build._current_raw_stream)
 
 
 # ---------------------------------------------------------------------------
