@@ -18,11 +18,12 @@ non-zero and prints no result):
              windows, B13 (bf16 only) at 128 and 256 prompts, B14 at its
              gated shapes (and, beside F.layer_norm's, its time a call in a
              run of calls back to back: the single call is mostly host
-             time); B1-B7, B9a, B10, B11, B12a and B12b in bf16 also
+             time); B1-B7, B9a, B9b, B10, B11, B12a and B12b in bf16 also
              within ATTN_SHARE (B3: B3_SHARE, B12: B12_SHARE) outputs off
              by more than one bf16 step, which the wrong functions (B1's
              and B6's weights rounded once, B2's and B10's rounded before
-             normalizing, B3's, B5's, B7's and B9a's left unrounded, B4's
+             normalizing, B3's, B5's, B7's, B9a's and B9b's left unrounded,
+             B4's
              attn left unrounded, B12b's h left in f32 or its gelu on erf,
              B12a's q and k rounded before RoPE or its weights left
              unrounded) must break; B14 in bf16 also within ATTN_SHARE (no
@@ -31,7 +32,10 @@ non-zero and prints no result):
              product must break; B3, B4 and B7's library time is the whole
              function in library calls (cuBLAS projections, SDPA, B4's
              out-projection and F.layer_norm), B3 and B4's SDPA alone
-             beside it
+             beside it; B13's least time is the largest of its bytes and
+             the exact gelu chain's instructions and MUFU operations per
+             element (B13_CHAIN_OPS; its compiled loop from cuobjdump's SASS
+             is reported beside it)
   reference  the online pipeline on a small synthetic scene with the tiny-pe
              card, on the card (kernels) and on the CPU (plain versions):
              equal point map and instances, descriptors within cosine 1e-4
@@ -110,13 +114,17 @@ non-zero and prints no result):
              OVO_FUSED_BLOCK=1: per embedded keyframe 24 B12a, 24 B12b, 1
              B6 and no B5 launches, B1-B4 as in the amg_slice; no host sync
              in the frame loop; a finite mIoU / mAcc; each phase's wall
-  kernel_device  B5, B6, B1, B2, B11, B9a, B3, B4, B7, B12a, B12b and B14
-             in bf16 and B10 in f32 at the kernel phase's shapes: the card's
-             kernel time per call from a torch.profiler trace, beside
-             SDPA's (B3 / B4 / B7: beside the whole function's library
-             route; B12a / B12b: beside the default route's block half;
-             B14: beside F.layer_norm); B7's trace must name its tensor-core
-             kernel (last, since a trace slows later launches)
+  kernel_device  B5, B6, B1, B2, B11, B9a, B3, B4, B7, B9b, B13, B12a,
+             B12b and B14 in bf16 and B10 in f32 at the kernel phase's
+             shapes: the card's kernel time per call from a torch.profiler
+             trace, beside SDPA's (B3 / B4 / B7: beside the whole function's
+             library route; B12a / B12b: beside the default route's block
+             half; B13: beside the decoder's unfused tail; B14: beside
+             F.layer_norm); B7's and B9b's traces must name their
+             tensor-core kernels (last, since a trace slows later launches);
+             a call none of whose traces holds the card's events is timed
+             by CUDA events over calls back to back and listed in
+             ``untraced``
   kernels    the kernels with their launch counts on the path that runs
              them: the amg_slice (B1-B6), the crop_slice (B10), the cli
              (B12a / B12b), the amg1280_slice (B9a, B9b, B8), the
@@ -131,7 +139,8 @@ The line before the last is {"kernels": [...]}; the last is
 runs only the amg_slice (the amg1280_slice, the crop_slice, the cli) three
 times: untraced, traced (the card's activity, torch.profiler; the kernel
 table written to PATH; the cli's --run loop only, with B12's device time per
-embedded keyframe), untraced again.
+embedded keyframe; at 1280, B9b's device time per segmented keyframe),
+untraced again.
 """
 from __future__ import annotations
 
@@ -323,25 +332,35 @@ def run_ms(fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, by_name=None) -> float:
+# calls of device_ms whose traces held no device time (run_ms timed them)
+UNTRACED = []
+
+
+def device_ms(fn, iters: int = 20, by_name=None, tag: str = "") -> float:
     """The card's kernel time per call of fn, from a torch.profiler trace
     of the card's activity (sum of its kernels' intervals over the calls):
     free of the host time between two CUDA events, which dominates calls
     below ~0.15 ms. A trace leaves host time on every later launch of the
     process, so this runs after every phase that times with CUDA events or
     the host's clock. ``by_name``, a dict, receives the time per call of
-    each kernel name (the first 60 characters)."""
+    each kernel name (the first 60 characters).
+
+    A trace now and then holds none of the card's events, at times several
+    in a row: it is taken again with the host idle for a while on both sides of the work, and if
+    none holds them, the call's time is run_ms's (host gaps included, so
+    at least the device time), ``tag`` goes to UNTRACED and ``by_name``
+    stays empty. After one such call, the later ones trace once only."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # a trace now and then comes back without the card's events: take it
-    # again, and fail rather than report 0
-    for _ in range(3):
+    for pad in (0.0,) if UNTRACED else (0.0, 0.05, 0.5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
         events = [e for e in prof.events() if e.device_type.name == "CUDA"]
         us = sum(e.time_range.elapsed_us() for e in events)
         if us > 0:
@@ -350,7 +369,11 @@ def device_ms(fn, iters: int = 20, by_name=None) -> float:
                 by_name[key] = (by_name.get(key, 0.0)
                                 + e.time_range.elapsed_us() / 1e3 / iters)
             return us / 1e3 / iters
-    raise AssertionError("torch.profiler recorded no device time")
+        print(f"[device_ms] {tag}: a trace padded by {pad} s held no device "
+              f"time ({len(prof.events())} events)", file=sys.stderr,
+              flush=True)
+    UNTRACED.append(tag)
+    return run_ms(fn, iters)
 
 
 def storage_bytes(*tensors) -> int:
@@ -565,8 +588,10 @@ def _heads_of_packed(gen, n, L, heads, hd, dev, dtype):
 # carry the check. B9a (its weights left unrounded: 0.13 on the CPU) and
 # B10 (B2's wrong function) hold it too since their tensor-core designs,
 # B7 (its normalized weights left unrounded: 0.079-0.082 on the CPU, the
-# kernel's mma chains modelled there 4.9e-5) since its own, and B14, whose
-# kernel sums its statistics in another order than the plain version.
+# kernel's mma chains modelled there 4.9e-5) and B9b (0.084-0.095, its mma
+# steps 5.2e-6, with and without masked tokens) since their own, and B14,
+# whose kernel sums its statistics in another order than the plain
+# version.
 ATTN_SHARE = 1e-2
 
 
@@ -744,6 +769,32 @@ def cross_small_head_unrounded_weights(qq, kk, vv, heads):
     o = torch.matmul(torch.softmax(s, dim=-1), heads_of(vv)).to(qq.dtype)
     return o.transpose(1, 2).reshape(B, qq.shape[1], D)
 
+
+
+def cross_small_head_i2t_unrounded_weights(qq, kk, vv, heads, t_len=None):
+    """B9b's plain version with its normalized weights left in f32 before
+    p . v: another function, which ATTN_SHARE must refuse. On the CPU at
+    the 1280^2 decoder's widths over 2048 image rows
+    (tests/test_torch_attention_share.py) it moves 0.084-0.095 of the
+    outputs by more than a bf16 step, the kernel's mma steps modelled there
+    at most 5.2e-6."""
+    from ovo_tpu_torch.ops.attention import _keys_below
+
+    B = max(qq.shape[0], kk.shape[0])
+    D = qq.shape[-1]
+    dh = D // heads
+
+    def heads_of(t):
+        h = t.reshape(t.shape[0], t.shape[1], heads, dh).transpose(1, 2)
+        return h.expand((B,) + h.shape[1:]).float()
+
+    s = torch.matmul(heads_of(qq), heads_of(kk).transpose(-1, -2)) * (
+        dh ** -0.5)
+    keep = _keys_below(kk.shape[1], t_len, qq.device)
+    if keep is not None:
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    o = torch.matmul(torch.softmax(s, dim=-1), heads_of(vv)).to(qq.dtype)
+    return o.transpose(1, 2).reshape(B, qq.shape[1], D)
 
 # B10 in f32 runs on the tensor cores as 3xTF32 (three TF32 products per
 # f32 product, csrc/fused_attention.cu). The 1e-4 limit of the other f32
@@ -988,21 +1039,36 @@ def check_b9a(dev, dtype, peaks, tol, Bk):
                    image_batch=Bk, shape=[B, T, L, D], **shares)
 
 
-def check_b9b(dev, dtype, peaks, tol, Bq):
-    from ovo_tpu_torch.ops.attention import (
-        cross_attention_small_head, cross_attention_small_head_plain)
-
-    B, T, L, heads, D = (B9_SHAPE[k] for k in ("B", "T", "L", "heads", "D"))
+def _b9b_inputs(dev, dtype, Bq):
+    B, T, L, D = (B9_SHAPE[k] for k in ("B", "T", "L", "D"))
     gen = torch.Generator(device=dev).manual_seed(10)
     q = torch.randn((Bq, L, D), generator=gen, device=dev).to(dtype)
     k, v = (torch.randn((B, T, D), generator=gen, device=dev).to(dtype)
             for _ in range(2))
-    err = 0.0
+    return q, k, v
+
+
+def check_b9b(dev, dtype, peaks, tol, Bq):
+    """B9b at the 1280^2 decoder's shape, with all 8 tokens and with the
+    last two masked (t_len 6); bf16 also within ATTN_SHARE of the plain
+    version, which its normalized weights left in f32 must break."""
+    from ovo_tpu_torch.ops.attention import (
+        cross_attention_small_head, cross_attention_small_head_plain)
+
+    B, T, L, heads, D = (B9_SHAPE[k] for k in ("B", "T", "L", "heads", "D"))
+    q, k, v = _b9b_inputs(dev, dtype, Bq)
+    err, shares = 0.0, {}
     for t_len in (None, T - 2):
-        err = max(err, _max_err(
-            cross_attention_small_head(q, k, v, heads, t_len=t_len),
-            cross_attention_small_head_plain(q, k, v, heads, t_len=t_len),
-            "B9b"))
+        got = cross_attention_small_head(q, k, v, heads, t_len=t_len)
+        ref = cross_attention_small_head_plain(q, k, v, heads, t_len=t_len)
+        err = max(err, _max_err(got, ref, "B9b"))
+        if dtype == torch.bfloat16:
+            r = _shares("B9b", got, ref,
+                        cross_small_head_i2t_unrounded_weights(
+                            q, k, v, heads, t_len=t_len))
+            tag = "" if t_len is None else "_masked"
+            shares.update({f"{key}{tag}": val for key, val in r.items()})
+        del got, ref
     qh, kh, vh = (_small_head_split(t, B, heads) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return _report("cross_small_head_i2t", dtype, err, tol,
@@ -1011,7 +1077,7 @@ def check_b9b(dev, dtype, peaks, tol, Bq):
                    lambda: sdpa(qh, kh, vh),
                    storage_bytes(q, k, v) + B * L * D * q.element_size(),
                    4.0 * B * heads * T * L * (D // heads), peaks,
-                   image_batch=Bq, shape=[B, L, T, D])
+                   image_batch=Bq, shape=[B, L, T, D], **shares)
 
 
 def _b7_library(x, heads):
@@ -1484,9 +1550,22 @@ def check_b11(dev, dtype, peaks, tol, which):
 
 B13_SHAPE = dict(H=64, W=64, c1=64, c2=32, C=3)
 # A product on a bf16 rounding edge flips a gelu output a step in a few
-# logits in 10^5; a gelu computed in f32 and rounded once (F.gelu) moves
-# about 90% of them by more than 2^-10
+# logits in 10^5 (the tensor-core kernel's mma chain over c1, 1.0e-4 of
+# them on an H100 at 128 and 256 prompts; modelled on the CPU in
+# tests/test_torch_mask_tail_share.py); a gelu computed in f32 and rounded
+# once (F.gelu) moves about 90% of them by more than 2^-10
 B13_SHARE = 1e-3
+# What the exact gelu chain needs per element of the tap product (B x R x 4
+# taps x c2), in instructions a lane issues on the CUDA cores: y rounded to
+# bf16 (a convert a pair), + b2 and + hr0q (a bf16x2 add a pair each), the
+# gelu's six products and two sums (bf16x2, a pair each), its tanh argument
+# widened to f32 (one a value), tanhf, and its result rounded (a convert a
+# pair). tanhf is CUDA's (tanh.approx flips bf16 roundings the reference
+# keeps): ex2 and rcp on the special-function unit and 13 more instructions
+# (the polynomial below 0.6, the exp form above it, the select and the
+# sign), as cuobjdump's SASS of tanhf shows under CUDA 12.8.
+B13_CHAIN_OPS = 0.5 + 2 * 0.5 + 8 * 0.5 + 1 + 15 + 0.5
+B13_CHAIN_MUFU = 2
 
 
 def _unfused_tail(up1g, w2q, b2, hr0, hyper, H, W):
@@ -1505,6 +1584,91 @@ def _unfused_tail(up1g, w2q, b2, hr0, hyper, H, W):
     return torch.einsum("bkc,bhwc->bkhw", hyper.float(), y.float())
 
 
+def _b13_inputs(dev, dtype, B):
+    """check_b13's inputs: tests/test_sam.py's scales, N(0,1) activations,
+    skip and hypernet, taps and bias of 0.1; hr0 as the raster skip."""
+    H, W, c1, c2, C = (B13_SHAPE[k] for k in ("H", "W", "c1", "c2", "C"))
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    up1g, hr0, hyper = rnd(B, H * W * 4, c1), rnd(4 * H, 4 * W, c2), rnd(
+        B, C, c2)
+    w2q, b2 = rnd(4, c1, c2, std=0.1), rnd(c2, std=0.1)
+    return up1g, w2q, b2, hr0, hyper
+
+
+def sass_loop(lib, kernel: str) -> dict:
+    """The compiled loop of a kernel: cuobjdump's SASS of the function whose
+    mangled name holds ``kernel`` in the shared library ``lib``, and in it
+    the loop that spans the most instructions (a backward branch and its
+    target). Returns its instruction count, the special-function (MUFU)
+    ones among them, and the commonest opcodes."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    body = next(f for f in text.split("Function : ")[1:]
+                if kernel in f.splitlines()[0])
+    labels, pending, code = {}, [], []
+    for line in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            labels.update({lab: addr for lab in pending})
+            pending = []
+            code.append((addr, m.group(2)))
+    loops = []
+    for addr, ins in code:
+        m = re.search(r"BRA\s+(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", ins)
+        if m:
+            target = labels.get(m.group(1)) if m.group(1).startswith(".") \
+                else int(m.group(1), 16)
+            if target is not None and target <= addr:
+                loops.append((target, addr))
+    if not loops:
+        raise AssertionError(f"sass_loop: {kernel} has no loop")
+    lo, hi = max(loops, key=lambda span: span[1] - span[0])
+    ops = [ins.split()[1] if ins.startswith("@") else ins.split()[0]
+           for addr, ins in code if lo <= addr <= hi]
+    return dict(instructions=len(ops),
+                mufu=sum(o.startswith("MUFU") for o in ops),
+                opcodes=dict(collections.Counter(
+                    o.split(".")[0] for o in ops).most_common(12)))
+
+
+def _b13_bound(B, R, c2, nbytes, flops, peaks):
+    """B13's least time: the largest of its bytes over the memory rate, its
+    products over the bf16 tensor rate, the gelu chain's instructions
+    (B13_CHAIN_OPS an element) at one a lane a clock, which is the f32
+    rate's FMA count (peaks[1] / 2), and its MUFU instructions, which a
+    special-function unit takes at an eighth of that rate (16 lanes a clock
+    an SM against 128). The kernel's compiled loop (sass_loop) is reported
+    beside it, not counted in it."""
+    from ovo_tpu_torch.ops import cuda_build
+
+    elements = B * R * 4 * c2
+    lane_rate = peaks[1] / 2
+    chain_ms = elements * B13_CHAIN_OPS / lane_rate * 1e3
+    mufu_ms = elements * B13_CHAIN_MUFU * 8 / lane_rate * 1e3
+    data_ms, data_by = _bound(nbytes, flops, torch.bfloat16, peaks)
+    bound = max(chain_ms, mufu_ms, data_ms)
+    loop = sass_loop(cuda_build._lib_path("mask_tail"), "mask_tail_kernel")
+    # one pass of the loop: a warp through 16 rows x c2 x 4 taps
+    loop["instructions_per_element"] = loop["instructions"] * 32 / (
+        16 * c2 * 4)
+    return dict(chain_ops_per_element=B13_CHAIN_OPS, chain_ms=chain_ms,
+                mufu_ms=mufu_ms, data_bound_ms=data_ms, compiled_loop=loop,
+                bound=(bound, data_by if bound == data_ms else "operations"))
+
+
 def check_b13(dev, dtype, peaks, tol, B):
     from ovo_tpu_torch.ops.mask_tail import (fused_mask_tail,
                                              fused_mask_tail_plain,
@@ -1512,15 +1676,7 @@ def check_b13(dev, dtype, peaks, tol, B):
 
     H, W, c1, c2, C = (B13_SHAPE[k] for k in ("H", "W", "c1", "c2", "C"))
     R = H * W * 4
-    gen = torch.Generator(device=dev).manual_seed(13)
-
-    def rnd(*shape, std=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
-
-    # tests/test_sam.py's scales: N(0,1) activations, skip and hypernet,
-    # taps and bias of 0.1
-    up1g, hr0, hyper = rnd(B, R, c1), rnd(4 * H, 4 * W, c2), rnd(B, C, c2)
-    w2q, b2 = rnd(4, c1, c2, std=0.1), rnd(c2, std=0.1)
+    up1g, w2q, b2, hr0, hyper = _b13_inputs(dev, dtype, B)
     hr0q = gather_hr0q(hr0, H, W)
     args = (up1g, w2q, b2, hr0q, hyper)
     got = fused_mask_tail(*args, H=H, W=W)
@@ -1541,19 +1697,22 @@ def check_b13(dev, dtype, peaks, tol, B):
                              f"plain version by more than 2^-10, "
                              f"{unfused_share} of the unfused tail's; the "
                              f"limit is {B13_SHARE}")
+    logit_max_abs = float(got.abs().max())
+    del got, ref, unfused
     nbytes = storage_bytes(*args) + B * 4 * R * C * 4
     flops = 2.0 * B * R * 4 * (c1 * c2 + c2 * C)
+    bound = _b13_bound(B, R, c2, nbytes, flops, peaks)
     return _report("mask_tail", dtype, err, tol,
                    lambda: fused_mask_tail(*args, H=H, W=W),
                    lambda: fused_mask_tail_plain(*args),
                    lambda: _unfused_tail(up1g, w2q, b2, hr0, hyper, H, W),
-                   nbytes, flops, peaks, prompts=B,
-                   unfused_max_abs_diff=unfused_err,
+                   nbytes, flops, peaks, bound=bound.pop("bound"),
+                   prompts=B, unfused_max_abs_diff=unfused_err,
                    mismatch_share=share, unfused_mismatch_share=unfused_share,
-                   logit_max_abs=float(got.abs().max()),
+                   logit_max_abs=logit_max_abs,
                    yardstick="the decoder's unfused tail: upscale2 GEMM, "
                              "skip, F.gelu, einsum",
-                   shape=[B, R, c1, c2, C])
+                   shape=[B, R, c1, c2, C], **bound)
 
 
 # ---------------------------------------------------------------------------
@@ -2322,6 +2481,12 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         raise AssertionError(f"{tag}: host syncs in the frame loop: "
                              f"{collections.Counter(loop_syncs)}")
     extra = _profile_summary(prof, wall, profile_path) if prof else {}
+    if prof is not None and image_size == 1280:
+        # the unfused decoder's image -> token attention (B9b, 2 launches
+        # per segmented keyframe): its device time per segmented keyframe
+        b9b = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type.name == "CUDA" and _is_b9b_kernel(e.name))
+        extra["b9b_device_ms_per_segmented_keyframe"] = b9b / 1e3 / n_seg
     record = dict(frames=len(scene), keyframes=ovo.kf_id,
                 segmented_keyframes=n_seg, embedded_keyframes=n_emb,
                 valid_masks_per_keyframe=valid_counts, seconds=wall,
@@ -2844,6 +3009,13 @@ def run_cli(dev, frames: int = 40, profile_path=None) -> dict:
     return record
 
 
+def _is_b9b_kernel(name: str) -> bool:
+    """B9b's device code in bf16: the tensor-core kernel, or the FMA kernel
+    that other widths (and the first design) take."""
+    return ("small_i2t_mma_kernel" in name
+            or "i2t_kernel<__nv_bfloat16>" in name)
+
+
 def _is_b12_kernel(name: str) -> bool:
     """B12a / B12b's device code on the cli path (bf16, hd 64, no causal
     block, no B5 launch): block_common.cuh's kernels and B12a's attention."""
@@ -2851,14 +3023,14 @@ def _is_b12_kernel(name: str) -> bool:
 
 
 def run_kernel_device(dev) -> dict:
-    """B5, B6, B1, B2, B11, B9a, B3, B4, B7, B12a, B12b and B14 in bf16 and
-    B10 in f32 at the kernel phase's shapes: the card's kernel time per call
-    beside the library's on the same operands (device_ms): SDPA for B5 (on
-    the rotated heads), B6 (the path's layout, the masks as a boolean mask),
-    B1, B2, B11, B9a (on the per-head views) and B10, the whole function's
-    library route for B3, B4 and B7 (_b3_library, _b4_library,
-    _b7_library), the default route's block half for B12a and B12b,
-    F.layer_norm for B14."""
+    """B5, B6, B1, B2, B11, B9a, B3, B4, B7, B9b, B13, B12a, B12b and B14 in
+    bf16 and B10 in f32 at the kernel phase's shapes: the card's kernel time
+    per call beside the library's on the same operands (device_ms): SDPA for
+    B5 (on the rotated heads), B6 (the path's layout, the masks as a boolean
+    mask), B1, B2, B11, B9a, B9b (on the per-head views) and B10, the whole
+    function's library route for B3, B4 and B7 (_b3_library, _b4_library,
+    _b7_library), the default route's block half for B12a and B12b, the
+    decoder's unfused tail for B13, F.layer_norm for B14."""
     from ovo_tpu_torch.ops.attention import (cross_attention_small_head,
                                              cross_i2t_from_keys,
                                              cross_i2t_tail_from_keys,
@@ -2924,12 +3096,13 @@ def run_kernel_device(dev) -> dict:
         lambda q=_small_head_split(q, B, heads),
         k=_small_head_split(k, B, heads), v=_small_head_split(v, B, heads):
         sdpa(q, k, v))
-    out = {tag: dict(kernel_device_ms=device_ms(kernel),
-                     sdpa_device_ms=device_ms(library))
+    out = {tag: dict(kernel_device_ms=device_ms(kernel, tag=tag),
+                     sdpa_device_ms=device_ms(library, tag=f"{tag} sdpa"))
            for tag, (kernel, library) in calls.items()}
     # B5's two launches (the rotation, the attention) apart
     parts = {}
-    device_ms(calls["rope_packed_attention"][0], by_name=parts)
+    device_ms(calls["rope_packed_attention"][0], by_name=parts,
+              tag="rope_packed_attention by name")
     out["rope_packed_attention"]["kernel_device_ms_by_name"] = parts
     # B12a / B12b at the path's shape beside the default route's block half
     # on the same input and weights, each launch apart
@@ -2942,9 +3115,10 @@ def run_kernel_device(dev) -> dict:
         parts = {}
         out[name] = dict(
             kernel_device_ms=device_ms(lambda: fn(*args, **kw),
-                                       by_name=parts),
+                                       by_name=parts, tag=name),
             kernel_device_ms_by_name=parts,
-            default_route_device_ms=device_ms(default_route))
+            default_route_device_ms=device_ms(
+                default_route, tag=f"{name} default route"))
         del args, kw, default_route
     heads = 8
     for bk in (256, 1):
@@ -2953,11 +3127,16 @@ def run_kernel_device(dev) -> dict:
         i2t = (x["keys"], x["wk"], x["pe"], x["q"], x["vt"], x["wout"],
                x["bout"], x["g"], x["b"], heads)
         out[f"cross_t2i_keys{bk}"] = dict(
-            kernel_device_ms=device_ms(lambda: cross_t2i_from_keys(*t2i)),
-            library_device_ms=device_ms(_b3_library(x, heads)))
+            kernel_device_ms=device_ms(lambda: cross_t2i_from_keys(*t2i),
+                                       tag=f"cross_t2i_keys{bk}"),
+            library_device_ms=device_ms(_b3_library(x, heads),
+                                        tag=f"cross_t2i_keys{bk} library"))
         out[f"cross_i2t_tail_keys{bk}"] = dict(
-            kernel_device_ms=device_ms(lambda: cross_i2t_tail_from_keys(*i2t)),
-            library_device_ms=device_ms(_b4_library(x, heads)))
+            kernel_device_ms=device_ms(
+                lambda: cross_i2t_tail_from_keys(*i2t),
+                tag=f"cross_i2t_tail_keys{bk}"),
+            library_device_ms=device_ms(
+                _b4_library(x, heads), tag=f"cross_i2t_tail_keys{bk} library"))
         del x, t2i, i2t
         # B7 at the 1280^2 decoder's shape (check_b7's): the kq launch and
         # the tensor-core kernel apart, which the trace must name
@@ -2966,23 +3145,66 @@ def run_kernel_device(dev) -> dict:
         parts = {}
         out[f"cross_i2t_proj_keys{bk}"] = dict(
             kernel_device_ms=device_ms(lambda: cross_i2t_from_keys(*proj),
-                                       by_name=parts),
+                                       by_name=parts,
+                                       tag=f"cross_i2t_proj_keys{bk}"),
             kernel_device_ms_by_name=parts,
-            library_device_ms=device_ms(_b7_library(x, heads)))
-        if not any("i2t_mma_kernel" in k for k in parts):
+            library_device_ms=device_ms(
+                _b7_library(x, heads), tag=f"cross_i2t_proj_keys{bk} library"))
+        # an untraced call (UNTRACED) names no kernel
+        if parts and not any("i2t_mma_kernel" in k for k in parts):
             raise AssertionError(f"kernel_device: B7 ran {sorted(parts)}, "
                                  f"not its tensor-core kernel")
         del x, proj
         torch.cuda.empty_cache()
+    # B9b at check_b9b's shapes, per-prompt and shared q, beside SDPA on
+    # the per-head views; the trace must name its tensor-core kernel
+    B, heads = B9_SHAPE["B"], B9_SHAPE["heads"]
+    for bq in (256, 1):
+        q, k, v = _b9b_inputs(dev, bf, bq)
+        parts = {}
+        out[f"cross_small_head_i2t_q{bq}"] = dict(
+            kernel_device_ms=device_ms(
+                lambda: cross_attention_small_head(q, k, v, heads),
+                by_name=parts, tag=f"cross_small_head_i2t_q{bq}"),
+            kernel_device_ms_by_name=parts,
+            sdpa_device_ms=device_ms(
+                lambda q=_small_head_split(q, B, heads),
+                k=_small_head_split(k, B, heads),
+                v=_small_head_split(v, B, heads): sdpa(q, k, v),
+                tag=f"cross_small_head_i2t_q{bq} sdpa"))
+        if parts and not any("small_i2t_mma_kernel" in name
+                             for name in parts):
+            raise AssertionError(f"kernel_device: B9b ran {sorted(parts)}, "
+                                 f"not its tensor-core kernel")
+        del q, k, v
+    # B13 at check_b13's shape (128 prompts) beside the decoder's unfused
+    # tail on the same inputs
+    from ovo_tpu_torch.ops.mask_tail import fused_mask_tail, gather_hr0q
+
+    H, W = B13_SHAPE["H"], B13_SHAPE["W"]
+    up1g, w2q, b2, hr0, hyper = _b13_inputs(dev, bf, 128)
+    hr0q = gather_hr0q(hr0, H, W)
+    out["mask_tail_b128"] = dict(
+        kernel_device_ms=device_ms(
+            lambda: fused_mask_tail(up1g, w2q, b2, hr0q, hyper, H=H, W=W),
+            tag="mask_tail_b128"),
+        unfused_tail_device_ms=device_ms(
+            lambda: _unfused_tail(up1g, w2q, b2, hr0, hyper, H, W),
+            tag="mask_tail_b128 unfused tail"))
+    del up1g, hr0, hr0q
+    torch.cuda.empty_cache()
     # B14 at its gated shapes (check_b14's, f32 scale / bias) beside
     # F.layer_norm on bf16 ones
     for which, (rows, C) in B14_SHAPES.items():
         x, g, b = _b14_inputs(dev, bf, which)
         gx, bx = g.to(bf), b.to(bf)
         out[f"layer_norm_rows_{which}"] = dict(
-            kernel_device_ms=device_ms(lambda: layer_norm_rows(x, g, b)),
+            kernel_device_ms=device_ms(lambda: layer_norm_rows(x, g, b),
+                                       tag=f"layer_norm_rows_{which}"),
             library_device_ms=device_ms(
-                lambda: torch.nn.functional.layer_norm(x, (C,), gx, bx)))
+                lambda: torch.nn.functional.layer_norm(x, (C,), gx, bx),
+                tag=f"layer_norm_rows_{which} library"))
+    out["untraced"] = UNTRACED
     return out
 
 
@@ -3111,8 +3333,8 @@ def main(argv) -> int:
     # means over 6400 rows of N(0,1) values, below 1 (step 2^-8): 1e-2; B9b's
     # and B7's over 8 tokens, below 4 (step 2^-6): 3e-2. B8: a LayerNorm
     # times ~1 plus an N(0,1) bias, below 8 (step 2^-5), one f32 value
-    # rounded on both sides: 6e-2. B9a and B7 in bf16 also hold ATTN_SHARE,
-    # which their normalized weights left unrounded break.
+    # rounded on both sides: 6e-2. B9a, B9b and B7 in bf16 also hold
+    # ATTN_SHARE, which their normalized weights left unrounded break.
     checks += [(check_b9a, f"b9a_kv{b}", 1e-2, {"Bk": b}) for b in (1, 256)]
     checks += [(check_b9b, f"b9b_q{b}", 3e-2, {"Bq": b}) for b in (1, 256)]
     checks += [(check_b7, f"b7_keys{b}", 3e-2, {"Bk": b}) for b in (1, 256)]

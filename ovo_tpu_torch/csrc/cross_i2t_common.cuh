@@ -1,6 +1,8 @@
 // Image -> token cross attention, the part that kernels B4
 // (cross_i2t_tail.cu: attention, out-projection, keys residual, LayerNorm)
-// and B7 (cross_i2t_proj.cu: the attention alone) share.
+// and B7 (cross_i2t_proj.cu: the attention alone) share, and whose token
+// softmax and p . v kernel B9b (cross_small_head.cu: attention on a
+// pre-projected q) takes up too.
 //
 // What the shared part computes, for prompt b and image row l (keys[l] of
 // width dk, the query side; Wq (dk, D); D = heads * dh), in the reference's
@@ -30,10 +32,11 @@
 //     - S (16 x RP) = [keys | pe_q] . [kq | k_tok_bd]^T, K = dk + the pe_q
 //       columns of each score tile's heads (pe_q's A fragments read
 //       straight from device memory, where it stays in L2);
-//     - the softmax over each head's tokens: a max and a sum over the lanes
-//       of a quad (XOR shuffles 1, 2), or over two n8 tiles when NT > 8; p
-//       normalized, rounded, and reused from the C fragments as the A
-//       fragments of attn = p . v_tok_bd over the heads' blocks;
+//     - i2t_softmax_pv, from the scores S: the softmax over each head's
+//       tokens, a max and a sum over the lanes of a quad (XOR shuffles 1,
+//       2), or over two n8 tiles when NT > 8; p normalized, rounded, and
+//       reused from the C fragments as the A fragments of attn = p .
+//       v_tok_bd over the heads' blocks;
 //     - attn left in its f32 C fragments (16 x DPAD) for the kernel's own
 //       epilogue.
 #pragma once
@@ -234,72 +237,24 @@ __device__ __forceinline__ void i2t_stage_tokens(const I2tArgs& a, int b,
   }
 }
 
-// attn (16 x DPAD, f32 C fragments: at[n] holds columns 8n..8n+7) of image
-// rows [l0, l0 + 16), whose keys sit in ks_w (row stride dk + 8)
-template <int TP, int RP, int DKC, int DC, int HC>
-__device__ __forceinline__ void i2t_attn_tile(
-    const I2tArgs& a, const bf16* ks_w, const bf16* kq_s, const bf16* kb_s,
-    const bf16* vb_s, int l0, float (&at)[DPAD / 8][4]) {
+// The token softmax and attn = p . v_tok_bd of one warp's 16 image rows,
+// from their scores S (16 x RP, f32 C fragments, before the scale; score
+// column h * TP + t is token t of head h): s scaled, tokens t >= t_len at
+// -1e30; p normalized, rounded, and reused as the A fragments of p .
+// v_tok_bd; attn in f32 C fragments (at[n] holds columns 8n..8n+7).
+template <int TP, int RP, int DC, int HC>
+__device__ __forceinline__ void i2t_softmax_pv(const I2tArgs& a,
+                                               float (&S)[RP / 8][4],
+                                               const bf16* vb_s,
+                                               float (&at)[DPAD / 8][4]) {
   constexpr int NS = RP / 8;       // n8 score tiles
   constexpr int ND = DPAD / 8;     // n8 attention tiles
-  const I2tWidths<DKC, DC, HC> w(a);
-  const int dk = w.dk, D = w.D, heads = w.heads, dh = w.dh;
-  const int LDK = dk + 8, LDE = DPAD + 8;  // odd 16-byte units
-  const int nkd = (D + 15) / 16;  // k16 chunks of D
+  const I2tWidths<0, DC, HC> w(a);
+  const int heads = w.heads, dh = w.dh;
+  constexpr int LDE = DPAD + 8;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3;
+  const int c = lane & 3;
   const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
-  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
-
-  // scores S (16 rows x RP) = [keys | pe_q] . [kq | k_tok_bd]^T
-  // pe_q's A fragments first: their loads from device memory overlap the
-  // keys' products
-  const int rA = l0 + g, rB = l0 + g + 8;
-  auto pe2 = [&](int row, int d) -> uint32_t {
-    return row < a.L && d < D ? *reinterpret_cast<const uint32_t*>(
-                                    a.peq + (size_t)row * D + d)
-                              : 0u;
-  };
-  uint32_t pa[DPAD / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < DPAD / 16; ++kc) {
-    const int d0 = 16 * kc + 2 * c;
-    pa[kc][0] = pe2(rA, d0);
-    pa[kc][1] = pe2(rB, d0);
-    pa[kc][2] = pe2(rA, d0 + 8);
-    pa[kc][3] = pe2(rB, d0 + 8);
-  }
-  float S[NS][4];
-#pragma unroll
-  for (int n = 0; n < NS; ++n) S[n][0] = S[n][1] = S[n][2] = S[n][3] = 0.f;
-  for (int kt = 0; kt < dk / 16; ++kt) {
-    uint32_t ka[4], kf[NS / 2][4];
-    ldmatrix_x4(ka, ks_w + a_row * LDK + 16 * kt + a_col);
-#pragma unroll
-    for (int jj = 0; jj < NS / 2; ++jj)
-      ldmatrix_x4(kf[jj], kq_s + (16 * jj + b_row) * LDK + 16 * kt + b_col);
-#pragma unroll
-    for (int jj = 0; jj < NS / 2; ++jj) {
-      mma_bf16(S[2 * jj], ka, kf[jj][0], kf[jj][1]);
-      mma_bf16(S[2 * jj + 1], ka, kf[jj][2], kf[jj][3]);
-    }
-  }
-#pragma unroll
-  for (int kc = 0; kc < DPAD / 16; ++kc) {
-    if (kc >= nkd) break;
-#pragma unroll
-    for (int jj = 0; jj < NS / 2; ++jj) {
-      // the heads of score columns [16 jj, 16 jj + 16) and their columns
-      // of pe_q: skip the zero blocks of k_tok_bd
-      const int ha = 16 * jj / TP, hb = (16 * jj + 15) / TP;
-      if (ha >= heads || (hb + 1) * dh <= 16 * kc || ha * dh >= 16 * kc + 16)
-        continue;
-      uint32_t kf[4];
-      ldmatrix_x4(kf, kb_s + (16 * jj + b_row) * LDE + 16 * kc + b_col);
-      mma_bf16(S[2 * jj], pa[kc], kf[0], kf[1]);
-      mma_bf16(S[2 * jj + 1], pa[kc], kf[2], kf[3]);
-    }
-  }
 #pragma unroll
   for (int n = 0; n < NS; ++n)
 #pragma unroll
@@ -364,6 +319,74 @@ __device__ __forceinline__ void i2t_attn_tile(
       mma_bf16(at[2 * np + 1], pA[kc], vf[2], vf[3]);
     }
   }
+}
+
+// attn (16 x DPAD, f32 C fragments: at[n] holds columns 8n..8n+7) of image
+// rows [l0, l0 + 16), whose keys sit in ks_w (row stride dk + 8)
+template <int TP, int RP, int DKC, int DC, int HC>
+__device__ __forceinline__ void i2t_attn_tile(
+    const I2tArgs& a, const bf16* ks_w, const bf16* kq_s, const bf16* kb_s,
+    const bf16* vb_s, int l0, float (&at)[DPAD / 8][4]) {
+  constexpr int NS = RP / 8;       // n8 score tiles
+  const I2tWidths<DKC, DC, HC> w(a);
+  const int dk = w.dk, D = w.D, heads = w.heads, dh = w.dh;
+  const int LDK = dk + 8, LDE = DPAD + 8;  // odd 16-byte units
+  const int nkd = (D + 15) / 16;  // k16 chunks of D
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
+
+  // scores S (16 rows x RP) = [keys | pe_q] . [kq | k_tok_bd]^T
+  // pe_q's A fragments first: their loads from device memory overlap the
+  // keys' products
+  const int rA = l0 + g, rB = l0 + g + 8;
+  auto pe2 = [&](int row, int d) -> uint32_t {
+    return row < a.L && d < D ? *reinterpret_cast<const uint32_t*>(
+                                    a.peq + (size_t)row * D + d)
+                              : 0u;
+  };
+  uint32_t pa[DPAD / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < DPAD / 16; ++kc) {
+    const int d0 = 16 * kc + 2 * c;
+    pa[kc][0] = pe2(rA, d0);
+    pa[kc][1] = pe2(rB, d0);
+    pa[kc][2] = pe2(rA, d0 + 8);
+    pa[kc][3] = pe2(rB, d0 + 8);
+  }
+  float S[NS][4];
+#pragma unroll
+  for (int n = 0; n < NS; ++n) S[n][0] = S[n][1] = S[n][2] = S[n][3] = 0.f;
+  for (int kt = 0; kt < dk / 16; ++kt) {
+    uint32_t ka[4], kf[NS / 2][4];
+    ldmatrix_x4(ka, ks_w + a_row * LDK + 16 * kt + a_col);
+#pragma unroll
+    for (int jj = 0; jj < NS / 2; ++jj)
+      ldmatrix_x4(kf[jj], kq_s + (16 * jj + b_row) * LDK + 16 * kt + b_col);
+#pragma unroll
+    for (int jj = 0; jj < NS / 2; ++jj) {
+      mma_bf16(S[2 * jj], ka, kf[jj][0], kf[jj][1]);
+      mma_bf16(S[2 * jj + 1], ka, kf[jj][2], kf[jj][3]);
+    }
+  }
+#pragma unroll
+  for (int kc = 0; kc < DPAD / 16; ++kc) {
+    if (kc >= nkd) break;
+#pragma unroll
+    for (int jj = 0; jj < NS / 2; ++jj) {
+      // the heads of score columns [16 jj, 16 jj + 16) and their columns
+      // of pe_q: skip the zero blocks of k_tok_bd
+      const int ha = 16 * jj / TP, hb = (16 * jj + 15) / TP;
+      if (ha >= heads || (hb + 1) * dh <= 16 * kc || ha * dh >= 16 * kc + 16)
+        continue;
+      uint32_t kf[4];
+      ldmatrix_x4(kf, kb_s + (16 * jj + b_row) * LDE + 16 * kc + b_col);
+      mma_bf16(S[2 * jj], pa[kc], kf[0], kf[1]);
+      mma_bf16(S[2 * jj + 1], pa[kc], kf[2], kf[3]);
+    }
+  }
+  i2t_softmax_pv<TP, RP, DC, HC>(a, S, vb_s, at);
 }
 
 // TP of NT tokens: NT rounded up to a power of two, at least 2

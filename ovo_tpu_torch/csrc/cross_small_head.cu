@@ -53,69 +53,42 @@
 //   64-row tiles widened to f32 in shared memory; each thread owns one row
 //   and 16 keys of a score tile, then one row and four output columns of
 //   p . v, p passing through shared memory.
-//  i2t: one block per (prompt, 128 image rows); the prompt's tokens sit in
-//   shared memory in f32. One thread per (image row, head), the rows of one
-//   head on consecutive threads, so the token reads are broadcasts: it
-//   loads its row's 16 q values, takes the token max and sum in one online
-//   pass, then p rounded and p . v in a second, and writes its 16 outputs
-//   (one 32-byte sector in bf16).
+//  i2t in bf16 at up to 16 tokens and D <= 128 (small_i2t_mma_kernel,
+//   tensor cores): the image-to-token tile B4 and B7 share
+//   (cross_i2t_common.cuh) without their keys . kq half. A block of eight
+//   warps (two blocks an SM) holds the prompt's k_tok and v_tok
+//   block-diagonally in shared memory (row h * TP + t holds token t in head
+//   h's columns); each warp takes 16 image rows at a time, its next tile's
+//   q arriving by cp.async (16-byte copies where pointer and strides allow)
+//   in one of its two buffers while the current one computes: S = q .
+//   k_tok_bd^T, one mma step per head; the token softmax and p . v_tok_bd
+//   on mma.sync (i2t_softmax_pv, shared with B4 and B7: p normalized, then
+//   rounded); attn rounded once over the tile's q rows and stored in
+//   16-byte copies. The row tiles spread evenly over the blocks of a
+//   prompt. The SAM decoder's widths (D 128, 8 heads) are fixed at compile
+//   time (8 or 16 score columns a head); other widths read D and heads at
+//   run time.
+//  i2t in f32, and in bf16 past 16 tokens or D 128 (i2t_kernel, FMAs; in
+//   bf16 the first design, 1.081 ms per-prompt and 0.998 ms shared at the
+//   AMG shape): one block per (prompt, 128 image rows); the prompt's tokens
+//   sit in shared memory in f32. One thread per (image row, head), the
+//   rows of one head on consecutive threads, so the token reads are
+//   broadcasts: it loads its row's 16 q values, takes the token max and sum
+//   in one online pass, then p rounded and p . v in a second, and writes
+//   its 16 outputs (one 32-byte sector in bf16).
 //  Batch-1 operands are read through a batch stride of 0: the (B, L, D)
 //  broadcast of a shared image side is never formed.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "mma_bf16.cuh"
+#include "cross_i2t_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int DH = 16;       // head size
 constexpr int RB = 64;       // t2i: token rows per block
 constexpr int BK = 64;       // t2i: image rows per tile
 constexpr int LDP = BK + 1;  // t2i: p rows
-constexpr int BL = 128;      // i2t: image rows per block
-constexpr int TMAX = 64;     // tokens (the short side)
-constexpr int DMAX = 256;    // D = heads * 16
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T>
-__device__ __forceinline__ float rnd(float x) { return to_f<T>(from_f<T>(x)); }
-
-// four consecutive elements (16-byte aligned for f32, 8-byte for bf16)
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
+constexpr int ROWS_I2T = 128;  // i2t_kernel: image rows per block
+constexpr int SHORT_MAX = 64;  // tokens (the short side)
+constexpr int DMAX = 256;      // D = heads * 16
 
 template <typename T>
 __device__ __forceinline__ void store4(T* p, float4 v);
@@ -132,13 +105,6 @@ __device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p,
   u.x = *reinterpret_cast<const uint32_t*>(&lo);
   u.y = *reinterpret_cast<const uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = u;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
 }
 
 __device__ __forceinline__ float dot16(const float (&q)[DH],
@@ -275,7 +241,7 @@ i2t_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* kt_s = reinterpret_cast<float*>(smem4);  // NT x D
   float* vt_s = kt_s + NT * D;                     // NT x D
   const int b = blockIdx.y;
-  const int l0 = blockIdx.x * BL;
+  const int l0 = blockIdx.x * ROWS_I2T;
   const T* kb = k + b * t_sb;
   const T* vb = v + b * t_sb;
   for (int i = threadIdx.x; i < NT * D; i += THREADS) {
@@ -286,8 +252,9 @@ i2t_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* qb = q + b * q_sb;
   T* ob = out + (long long)b * L * D;
-  for (int item = threadIdx.x; item < BL * heads; item += THREADS) {
-    const int h = item / BL, l = l0 + item % BL;
+  for (int item = threadIdx.x; item < ROWS_I2T * heads;
+       item += THREADS) {
+    const int h = item / ROWS_I2T, l = l0 + item % ROWS_I2T;
     if (l >= L) continue;
     float qr[DH];
     const T* qp = qb + (long long)l * D + h * DH;
@@ -516,8 +483,192 @@ cudaError_t launch_t2i_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// i2t in bf16 on the tensor cores (design in the header note)
+// ---------------------------------------------------------------------------
+
+constexpr int I2T_WARPS = 8;   // warps a block: two blocks an SM
+constexpr int I2T_TILES = 8;   // 16-row tiles a warp takes in a block, at most
+constexpr int LDQ = DPAD + 8;  // rows of the tokens, q and attn in shared
+                               // memory: an odd number of 16-byte units
+
+struct SmallI2tArgs : I2tArgs {
+  const bf16* q;  // (B or 1, L, D)
+  bf16* out;      // (B, L, D)
+  long long qb;   // q's batch stride (0: shared)
+  int vs_q;       // copy width (vector_shift) of q's rows
+  int tiles;      // 16-row tiles a block takes
+};
+
+// i2t takes the tensor cores in bf16 at the shared tile's widths (at most
+// 16 tokens, D <= 128), i2t_kernel otherwise
+bool i2t_takes_mma(int NT, int D, int dtype) {
+  return dtype == 1 && NT <= 16 && D <= DPAD;
+}
+
+// the prompt's k_tok and v_tok, block-diagonal, into shared memory in the
+// layout i2t_stage_tokens builds (row h * TP + t holds token t in head h's
+// 16 columns, zeros elsewhere), in 4-byte copies
+template <int TP, int RP>
+__device__ __forceinline__ void stage_small_tokens(const SmallI2tArgs& a,
+                                                   int b, bf16* kb_s,
+                                                   bf16* vb_s) {
+  const int tid = threadIdx.x;
+  const uint4 zero = {0u, 0u, 0u, 0u};
+  for (int i = tid; i < RP * LDQ / 8; i += blockDim.x) {
+    reinterpret_cast<uint4*>(kb_s)[i] = zero;
+    reinterpret_cast<uint4*>(vb_s)[i] = zero;
+  }
+  __syncthreads();
+  const bf16* ktb = a.kt + b * a.t_sb;
+  const bf16* vtb = a.vt + b * a.t_sb;
+  const int pairs = a.D / 2;  // 4-byte copies a token row takes
+  for (int i = tid; i < a.NT * pairs; i += blockDim.x) {
+    const int t = i / pairs, col = 2 * (i - t * pairs);
+    const int r = ((col / DH) * TP + t) * LDQ + col;
+    *reinterpret_cast<uint32_t*>(kb_s + r) =
+        *reinterpret_cast<const uint32_t*>(ktb + t * a.D + col);
+    *reinterpret_cast<uint32_t*>(vb_s + r) =
+        *reinterpret_cast<const uint32_t*>(vtb + t * a.D + col);
+  }
+}
+
+// TP, RP: as i2t_softmax_pv's (cross_i2t_common.cuh); DC, HC: D and heads
+// fixed at compile time (0: read at run time)
+template <int TP, int RP, int DC, int HC>
+__global__ void __launch_bounds__(32 * I2T_WARPS, 2)
+small_i2t_mma_kernel(SmallI2tArgs a) {
+  constexpr int NS = RP / 8;    // n8 score tiles
+  constexpr int ND = DPAD / 8;  // n8 attention tiles
+  const int D = DC ? DC : a.D, heads = HC ? HC : a.heads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* kb_s = reinterpret_cast<bf16*>(smem_raw);  // RP x LDQ, k_tok
+  bf16* vb_s = kb_s + RP * LDQ;                    // RP x LDQ, v_tok
+  bf16* q_s = vb_s + RP * LDQ;  // I2T_WARPS x 2 x 16 x LDQ: q, then attn
+
+  const int b = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
+  stage_small_tokens<TP, RP>(a, b, kb_s, vb_s);
+  __syncthreads();
+
+  // the warp's tiles, each through one of its two buffers while the next
+  // one loads into the other
+  const bf16* qb = a.q + b * a.qb;
+  const int t_end = min((a.L + 15) / 16, (blockIdx.x + 1) * a.tiles);
+  bf16* buf = q_s + warp * 2 * 16 * LDQ;
+  int tile = blockIdx.x * a.tiles + warp;
+  if (tile < t_end)
+    load_rows(buf, LDQ, qb, D, 16 * tile, 16, a.L, D, a.vs_q, lane, 32);
+  cp_async_commit();
+  const int per_row = D / 8;  // 16-byte copies a row of out takes
+  for (int i = 0; tile < t_end; ++i, tile += I2T_WARPS) {
+    bf16* cur = buf + (i & 1) * 16 * LDQ;
+    if (tile + I2T_WARPS < t_end)
+      load_rows(buf + ((i + 1) & 1) * 16 * LDQ, LDQ, qb, D,
+                16 * (tile + I2T_WARPS), 16, a.L, D, a.vs_q, lane, 32);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+
+    // S (16 x RP) = q . k_tok_bd^T: head h's 16 columns of q against the
+    // score columns of its tokens, one mma step each (the zero blocks of
+    // k_tok_bd skipped)
+    float S[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) S[n][0] = S[n][1] = S[n][2] = S[n][3] = 0.f;
+#pragma unroll
+    for (int h = 0; h < DPAD / DH; ++h) {
+      if (h >= heads) break;
+      uint32_t qa[4];
+      ldmatrix_x4(qa, cur + a_row * LDQ + DH * h + a_col);
+#pragma unroll
+      for (int jj = 0; jj < NS / 2; ++jj) {
+        if (16 * jj + 16 <= h * TP || 16 * jj >= (h + 1) * TP) continue;
+        uint32_t kf[4];
+        ldmatrix_x4(kf, kb_s + (16 * jj + b_row) * LDQ + DH * h + b_col);
+        mma_bf16(S[2 * jj], qa, kf[0], kf[1]);
+        mma_bf16(S[2 * jj + 1], qa, kf[2], kf[3]);
+      }
+    }
+    float at[ND][4];
+    i2t_softmax_pv<TP, RP, DC, HC>(a, S, vb_s, at);
+
+    // attn rounded once (the reference's astype) over the q rows every
+    // lane has read, then out in 16-byte copies
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      if (8 * n >= D) break;
+      const int col = 8 * n + 2 * c;
+      *reinterpret_cast<uint32_t*>(cur + g * LDQ + col) =
+          pack_bf16(at[n][0], at[n][1]);
+      *reinterpret_cast<uint32_t*>(cur + (g + 8) * LDQ + col) =
+          pack_bf16(at[n][2], at[n][3]);
+    }
+    __syncwarp();
+    bf16* ob = a.out + ((size_t)b * a.L + 16 * tile) * D;
+    for (int j = lane; j < 16 * per_row; j += 32) {
+      const int r = j / per_row, col = 8 * (j - r * per_row);
+      if (16 * tile + r >= a.L) break;
+      *reinterpret_cast<uint4*>(ob + (size_t)r * D + col) =
+          *reinterpret_cast<const uint4*>(cur + r * LDQ + col);
+    }
+    __syncwarp();  // cur is refilled next
+  }
+}
+
+template <int TP, int RP, int DC, int HC>
+cudaError_t launch_small_i2t(const SmallI2tArgs& a, int B, int blocks,
+                             cudaStream_t s) {
+  // 102 KB at RP 64 (two blocks an SM), 136 KB at RP 128
+  const size_t smem = sizeof(bf16) * ((size_t)2 * RP * LDQ +
+                                      (size_t)I2T_WARPS * 2 * 16 * LDQ);
+  auto kernel = small_i2t_mma_kernel<TP, RP, DC, HC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(blocks, B), 32 * I2T_WARPS, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// i2t in bf16 on the tensor cores: the SAM decoder's widths (D 128, 8
+// heads) fixed at compile time, 8 or 16 token columns a head; other widths
+// (D <= 128) at 16 and run-time D and heads
+cudaError_t small_i2t_mma(const void* q, const void* k, const void* v,
+                          void* out, int B, int NT, int t_len, int heads,
+                          int L, int D, float scale, long long q_sb,
+                          long long t_sb, cudaStream_t s) {
+  SmallI2tArgs a = {};
+  a.kt = static_cast<const bf16*>(k);
+  a.vt = static_cast<const bf16*>(v);
+  a.NT = NT;
+  a.heads = heads;
+  a.t_len = t_len;
+  a.L = L;
+  a.D = D;
+  a.scale = scale;
+  a.t_sb = t_sb;
+  a.q = static_cast<const bf16*>(q);
+  a.out = static_cast<bf16*>(out);
+  a.qb = q_sb;
+  const long long sq[2] = {D, q_sb};
+  a.vs_q = vector_shift(&q, 1, sq, 2, D);
+  // the row tiles spread evenly over the fewest blocks of at most
+  // I2T_WARPS x I2T_TILES tiles
+  const int n_tiles = (L + 15) / 16;
+  const int blocks = (n_tiles + I2T_WARPS * I2T_TILES - 1) /
+                     (I2T_WARPS * I2T_TILES);
+  a.tiles = (n_tiles + blocks - 1) / blocks;
+  if (D == 128 && heads == 8)
+    return NT <= 8 ? launch_small_i2t<8, 64, 128, 8>(a, B, blocks, s)
+                   : launch_small_i2t<16, 128, 128, 8>(a, B, blocks, s);
+  return launch_small_i2t<16, 128, 0, 0>(a, B, blocks, s);
+}
+
 bool bad_shape(int B, int NT, int heads, int L, int D) {
-  return B < 1 || NT < 1 || NT > TMAX || heads < 1 || L < 1 ||
+  return B < 1 || NT < 1 || NT > SHORT_MAX || heads < 1 || L < 1 ||
          D != heads * DH || D > DMAX;
 }
 
@@ -561,7 +712,9 @@ extern "C" int ovo_cross_small_head_t2i(const void* q, const void* k,
 }
 
 // i2t: q (B or 1, L, D) at q_sb; k and v (B or 1, NT, D) at t_sb; out (B, L,
-// D). Tokens t >= t_len are masked. Limits as t2i.
+// D). Tokens t >= t_len are masked. Limits as t2i. bf16 with NT <= 16 and
+// D <= 128 runs on the tensor cores (small_i2t_mma_kernel), other widths
+// and f32 on i2t_kernel.
 extern "C" int ovo_cross_small_head_i2t(const void* q, const void* k,
                                         const void* v, void* out, int B,
                                         int NT, int t_len, int heads, int L,
@@ -571,8 +724,11 @@ extern "C" int ovo_cross_small_head_i2t(const void* q, const void* k,
   if (bad_shape(B, NT, heads, L, D) || t_len < 1 || t_len > NT)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (i2t_takes_mma(NT, D, dtype))
+    return (int)small_i2t_mma(q, k, v, out, B, NT, t_len, heads, L, D, scale,
+                              q_sb, t_sb, s);
   const size_t smem = sizeof(float) * 2 * NT * D;
-  dim3 grid((L + BL - 1) / BL, B);
+  dim3 grid((L + ROWS_I2T - 1) / ROWS_I2T, B);
   cudaError_t err;
   if (dtype == 0) {
     err = cudaFuncSetAttribute(i2t_kernel<float>,
@@ -584,15 +740,14 @@ extern "C" int ovo_cross_small_head_i2t(const void* q, const void* k,
         static_cast<const float*>(v), static_cast<float*>(out), NT, t_len,
         heads, L, D, scale, q_sb, t_sb);
   } else if (dtype == 1) {
-    typedef __nv_bfloat16 bf;
-    err = cudaFuncSetAttribute(i2t_kernel<bf>,
+    err = cudaFuncSetAttribute(i2t_kernel<bf16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    i2t_kernel<bf><<<grid, THREADS, smem, s>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k),
-        static_cast<const bf*>(v), static_cast<bf*>(out), NT, t_len, heads,
-        L, D, scale, q_sb, t_sb);
+    i2t_kernel<bf16><<<grid, THREADS, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(out), NT, t_len,
+        heads, L, D, scale, q_sb, t_sb);
   } else {
     return (int)cudaErrorInvalidValue;
   }

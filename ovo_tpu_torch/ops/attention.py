@@ -799,6 +799,19 @@ SMALL_HEAD_DIM = 16
 SHORT_SIDE = 64          # the token side: at most 64 rows
 
 
+# ovo_cross_small_head_t2i(q, k, v, out, B, NT, heads, L, D, scale, q_sb,
+# k_sb, v_sb, dtype); ovo_cross_small_head_i2t(q, k, v, out, B, NT, t_len,
+# heads, L, D, scale, q_sb, t_sb, dtype)
+_SMALL_HEAD_T2I = cuda_build.Entry(
+    "cross_small_head", "ovo_cross_small_head_t2i",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
+    + [ctypes.c_longlong] * 3 + [ctypes.c_int])
+_SMALL_HEAD_I2T = cuda_build.Entry(
+    "cross_small_head", "ovo_cross_small_head_i2t",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+    + [ctypes.c_longlong] * 2 + [ctypes.c_int])
+
+
 def cross_attention_small_head_plain(qq: torch.Tensor, kk: torch.Tensor,
                                      vv: torch.Tensor, heads: int,
                                      t_len: Optional[int] = None
@@ -865,30 +878,18 @@ def cross_attention_small_head(qq: torch.Tensor, kk: torch.Tensor,
             raise ValueError(f"{name}: operands must be 16-byte aligned with "
                              f"batch strides a multiple of 4")
     out = torch.empty((B, Lq, D), dtype=dt, device=dev)
-    lib = cuda_build.library("cross_small_head")
     scale = float(SMALL_HEAD_DIM ** -0.5)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if t2i:
-            fn = lib.ovo_cross_small_head_t2i
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-                ctypes.c_float] + [ctypes.c_longlong] * 3 + [
-                ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            err = fn(qq.data_ptr(), kk.data_ptr(), vv.data_ptr(),
-                     out.data_ptr(), B, Lq, heads, Lk, D, scale,
-                     _batch_stride(qq), _batch_stride(kk), _batch_stride(vv),
-                     _DTYPES[dt], stream)
-        else:
-            fn = lib.ovo_cross_small_head_i2t
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-                ctypes.c_float] + [ctypes.c_longlong] * 2 + [
-                ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            err = fn(qq.data_ptr(), kk.data_ptr(), vv.data_ptr(),
-                     out.data_ptr(), B, Lk, tl, heads, Lq, D, scale,
-                     _batch_stride(qq), _batch_stride(kk), _DTYPES[dt],
-                     stream)
+    if t2i:
+        err = _SMALL_HEAD_T2I(
+            dev.index, qq.data_ptr(), kk.data_ptr(), vv.data_ptr(),
+            out.data_ptr(), B, Lq, heads, Lk, D, scale, _batch_stride(qq),
+            _batch_stride(kk), _batch_stride(vv), _DTYPES[dt])
+    else:
+        err = _SMALL_HEAD_I2T(
+            dev.index, qq.data_ptr(), kk.data_ptr(), vv.data_ptr(),
+            out.data_ptr(), B, Lk, tl, heads, Lq, D, scale, _batch_stride(qq),
+            _batch_stride(kk), _DTYPES[dt])
     cuda_build.check(err, name)
     cuda_build.count_launch(name)
     return out
+

@@ -33,6 +33,9 @@ _GELU_S = 0.796875
 MAX_CHANNELS = 4
 # (c1, c2) the kernel is built for: SAM2's d = 256 decoder
 KERNEL_WIDTHS = (64, 32)
+# ovo_mask_tail(up1g, w2q, b2, hr0q, hyper, out, B, R, c1, c2, C)
+_MASK_TAIL = cuda_build.Entry("mask_tail", "ovo_mask_tail",
+                              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5)
 
 
 def gelu_tanh_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -99,19 +102,14 @@ def fused_mask_tail(up1g: torch.Tensor, w2q: torch.Tensor, b2: torch.Tensor,
         raise ValueError(f"fused_mask_tail takes (c1, c2) = {KERNEL_WIDTHS} "
                          f"and 1..{MAX_CHANNELS} channels; got ({c1}, {c2}), "
                          f"C={C}")
-    if not all(t.is_contiguous() for t in tensors) or up1g.data_ptr() % 16:
+    if (not all(t.is_contiguous() for t in tensors) or up1g.data_ptr() % 16
+            or any(t.data_ptr() % 4 for t in tensors)):
         raise ValueError("fused_mask_tail: inputs must be contiguous, up1g "
-                         "16-byte aligned")
+                         "16-byte aligned and the others 4-byte")
     out = torch.empty((B, 4, R, C), dtype=torch.float32, device=dev)
-    fn = cuda_build.library("mask_tail").ovo_mask_tail
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(up1g.data_ptr(), w2q.data_ptr(), b2.data_ptr(),
-                 hr0q.data_ptr(), hyper.data_ptr(), out.data_ptr(), B, R, c1,
-                 c2, C, stream)
+    err = _MASK_TAIL(dev.index, up1g.data_ptr(), w2q.data_ptr(),
+                     b2.data_ptr(), hr0q.data_ptr(), hyper.data_ptr(),
+                     out.data_ptr(), B, R, c1, c2, C)
     cuda_build.check(err, "mask_tail")
     cuda_build.count_launch("mask_tail")
     return out

@@ -2,7 +2,8 @@
 B1 (flash_attention), B2 (windowed_fused_attention), B11
 (packed_heads_attention), B3 (cross_t2i), B4 (cross_i2t_tail), B7
 (cross_i2t_proj), B5 (rope_packed_attention), B6 (masked_pool), B9a
-(cross_small_head t2i) and B10 (fused_attention) to in bf16, beside
+(cross_small_head t2i), B9b (cross_small_head i2t) and B10
+(fused_attention) to in bf16, beside
 their max-abs limits: the share of outputs that differ from the plain
 version by more than one bf16 step at the plain output's magnitude, at
 most ``ATTN_SHARE`` (``B3_SHARE`` for B3, whose output dilutes a weight's
@@ -11,13 +12,13 @@ rounding over dk products).
 On the CPU, at the main paths' head sizes and key counts: a reordered f32
 sum of the right function (keys, or B4's and B7's tokens, permuted), B1's
 p_hi + p_lo split of its f32 weights (the kernel's p . v) and B7's mma
-chains, stay under the limit;
+chains, and B9b's mma steps, stay under the limit;
 the functions the kernels must not compute break it. Those are B1 with its
 weights rounded once to bf16 (which the max-abs limit alone passes), B2 /
 B11 with exp(s - m) rounded before it is normalized, B3, B5 and B7 with
 their normalized weights left unrounded, B4 with attn left unrounded, B6
-with its f32 weights rounded once (the reference's XLA route), and B9a with
-its normalized weights left unrounded.
+with its f32 weights rounded once (the reference's XLA route), and B9a and
+B9b with their normalized weights left unrounded.
 
 B10 in f32 runs as 3xTF32 on the tensor cores: its limit
 ``chip_smoke.B10_F32_TOL`` passes an emulated 3xTF32 product and refuses
@@ -319,6 +320,59 @@ def test_cross_small_head_share_tells_unrounded_weights_apart(B, Bk, L):
     assert float((wrong.float() - ref.float()).abs().max()) <= 1e-2
     assert share(wrong, ref) > chip_smoke.ATTN_SHARE
 
+
+
+def _small_head_i2t_mma(qq, kk, vv, heads, t_len, truncate):
+    """B9b's bf16 arithmetic as its tensor-core kernel does it: each head's
+    16-column score one mma step (its exact sum rounded to f32 to nearest
+    or, ``truncate``, toward zero, the way the mma accumulates), scaled;
+    tokens past t_len at -1e30; p normalized, then rounded; p . v one mma
+    step (the head's tokens)."""
+    B, Lq, D = max(qq.shape[0], kk.shape[0]), qq.shape[1], qq.shape[2]
+    dh = D // heads
+    to_f32 = _toward_zero if truncate else (lambda t: t.float())
+
+    def heads_of(t):
+        h = t.reshape(t.shape[0], t.shape[1], heads, dh).transpose(1, 2)
+        return h.expand((B,) + h.shape[1:]).double()
+
+    s = to_f32(heads_of(qq) @ heads_of(kk).transpose(-1, -2)) * dh ** -0.5
+    if t_len is not None:
+        s[..., t_len:] = -1e30
+    p = torch.softmax(s, dim=-1).to(BF).double()
+    o = to_f32(p @ heads_of(vv)).to(BF)
+    return o.transpose(1, 2).reshape(B, Lq, D)
+
+
+@pytest.mark.parametrize("Bq,t_len", [(8, None), (8, 6), (1, None), (1, 5)])
+def test_cross_small_head_i2t_share_tells_unrounded_weights_apart(Bq, t_len):
+    """B9b at the 1280^2 decoder's widths (8 heads of 16, 8 tokens) over
+    2048 image rows, per-prompt (Bq 8) and shared (Bq 1) q, all tokens or
+    the first t_len: tokens permuted (with their k and v rows, the masked
+    ones kept last) and the tensor-core kernel's mma steps (to nearest or
+    toward zero; at most 5.2e-6 in a CPU run) stay under ATTN_SHARE; the
+    normalized weights left in f32
+    (chip_smoke.cross_small_head_i2t_unrounded_weights: 0.084-0.095) break
+    it, which the max-abs limit (3e-2) alone passes."""
+    heads, T, L, D, B = 8, 8, 2048, 128, 8
+    rng = np.random.default_rng(90 + Bq + (t_len or 0))
+    q, k, v = _bf16(rng, Bq, L, D), _bf16(rng, B, T, D), _bf16(rng, B, T, D)
+    ref = A.cross_attention_small_head_plain(q, k, v, heads, t_len=t_len)
+    live = T if t_len is None else t_len
+    perm = torch.cat([torch.from_numpy(rng.permutation(live)),
+                      torch.arange(live, T)])
+    reordered = A.cross_attention_small_head_plain(q, k[:, perm], v[:, perm],
+                                                   heads, t_len=t_len)
+    share = chip_smoke.step_share
+    assert share(reordered, ref) <= chip_smoke.ATTN_SHARE
+    for truncate in (False, True):
+        mma = _small_head_i2t_mma(q, k, v, heads, t_len, truncate)
+        assert float((mma.float() - ref.float()).abs().max()) <= 3e-2
+        assert share(mma, ref) <= chip_smoke.ATTN_SHARE / 10
+    wrong = chip_smoke.cross_small_head_i2t_unrounded_weights(
+        q, k, v, heads, t_len=t_len)
+    assert float((wrong.float() - ref.float()).abs().max()) <= 3e-2
+    assert share(wrong, ref) > chip_smoke.ATTN_SHARE
 
 def _tf32x3_product(a, b):
     """a @ b as the kernel's tensor cores form it: each operand split into

@@ -602,18 +602,54 @@ def test_cross_small_head_t2i_kernel_edges(cuda_device, dtype, tol, T, heads):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
 def test_cross_small_head_i2t_kernel_matches_plain(cuda_device, dtype, tol):
+    """A shared image side with per-prompt tokens (the first layer),
+    per-prompt both, masked tokens, shared tokens; 8, 5, 16, 11, 3 tokens
+    with t_len below them; image sides that are not a multiple of the
+    16-row tile; the decoder's 8 heads and 4, 5 or 1 (the tensor cores'
+    run-time widths); bf16 also within ATTN_SHARE. At 20 tokens or 12 heads
+    (D 192), outside the tensor-core tile, and in f32 the entry point takes
+    i2t_kernel: the call's trace names the kernel that ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ovo_tpu_torch.ops import cuda_build
+
+    def traced(fn):
+        # a trace now and then comes back without the card's events
+        for _ in range(3):
+            cuda_build.reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type.name == "CUDA"]
+            if names:
+                return out, names
+        raise AssertionError("torch.profiler recorded no kernel")
+
     rng = np.random.default_rng(29)
-    # (prompts, image batch, tokens, t_len, image rows): a shared image side
-    # with per-prompt tokens (the first layer), per-prompt both, masked
-    # tokens, shared tokens
-    for Bt, Bq, T, t_len, L in ((4, 1, 8, None, 300), (4, 4, 8, 6, 129),
-                                (1, 3, 11, None, 200)):
-        q = _dev(rng.standard_normal((Bq, L, 128)), cuda_device, dtype)
-        k, v = (_dev(rng.standard_normal((Bt, T, 128)), cuda_device, dtype)
+    # (prompts, image batch, tokens, t_len, heads, image rows, route in bf16)
+    for Bt, Bq, T, t_len, heads, L, route in (
+            (4, 1, 8, None, 8, 300, "mma"), (4, 4, 8, 6, 8, 129, "mma"),
+            (1, 3, 11, None, 8, 200, "mma"), (3, 3, 5, 4, 8, 1000, "mma"),
+            (2, 1, 16, 11, 8, 6401, "mma"), (2, 2, 16, None, 8, 77, "mma"),
+            (3, 3, 8, 7, 4, 257, "mma"), (2, 1, 11, 9, 5, 130, "mma"),
+            (2, 2, 3, 2, 1, 65, "mma"), (2, 2, 20, 17, 8, 300, "fma"),
+            (2, 1, 8, None, 12, 200, "fma")):
+        D = 16 * heads
+        q = _dev(rng.standard_normal((Bq, L, D)), cuda_device, dtype)
+        k, v = (_dev(rng.standard_normal((Bt, T, D)), cuda_device, dtype)
                 for _ in range(2))
-        got = A.cross_attention_small_head(q, k, v, 8, t_len=t_len)
-        ref = A.cross_attention_small_head_plain(q, k, v, 8, t_len=t_len)
+        got, names = traced(lambda: A.cross_attention_small_head(
+            q, k, v, heads, t_len=t_len))
+        assert cuda_build.launch_counts()["cross_small_head_i2t"] == 1
+        # one i2t kernel ran, and it is the tensor cores' where expected
+        assert [("small_i2t_mma_kernel" in n) for n in names
+                if "i2t" in n] == [route == "mma"
+                                   and dtype == torch.bfloat16], names
+        ref = A.cross_attention_small_head_plain(q, k, v, heads, t_len=t_len)
+        assert got.shape == ref.shape == (max(Bt, Bq), L, D)
         assert _err(got, ref) <= tol
+        assert _shares_ok(got, ref, dtype)
 
 
 @pytest.mark.cuda
@@ -766,14 +802,20 @@ def test_packed_heads_kernel_matches_plain(cuda_device, dtype, tol):
 
 @pytest.mark.cuda
 def test_mask_tail_kernel_matches_plain(cuda_device):
+    """SAM2's widths (c1 64, c2 32): a ragged prompt group (11, 9: not a
+    multiple of the 8 prompts a block), one prompt, row counts that are not
+    a multiple of the 128-row block or the 16-row warp tile (60, 140), 1 to
+    4 channels, and the AMG's 64 x 64 rows; the share of logits off by more
+    than 2^-10 too."""
+    from ovo_tpu_torch.ops import cuda_build
     from ovo_tpu_torch.ops import mask_tail as MT
 
     rng = np.random.default_rng(34)
     bf = torch.bfloat16
-    # (prompts, H, W, channels) at SAM2's widths (c1 64, c2 32): a ragged
-    # prompt group, and all four channels
     c1, c2 = 64, 32
-    for B, H, W, C in ((11, 16, 16, 3), (3, 8, 4, 4)):
+    # (prompts, H, W, channels)
+    for B, H, W, C in ((11, 16, 16, 3), (3, 8, 4, 4), (1, 3, 5, 1),
+                       (9, 5, 7, 2), (4, 64, 64, 3)):
         R = H * W * 4
         up1g = _dev(rng.standard_normal((B, R, c1)), cuda_device, bf)
         w2q = _dev(rng.standard_normal((4, c1, c2)) * 0.1, cuda_device, bf)
@@ -781,10 +823,49 @@ def test_mask_tail_kernel_matches_plain(cuda_device):
         hr0q = _dev(rng.standard_normal((4, R, c2)), cuda_device, bf)
         hyper = _dev(rng.standard_normal((B, C, c2)), cuda_device, bf)
         args = (up1g, w2q, b2, hr0q, hyper)
+        cuda_build.reset_launch_counts()
         got = MT.fused_mask_tail(*args, H=H, W=W)
+        assert cuda_build.launch_counts()["mask_tail"] == 1
         assert got.shape == (B, 4, R, C) and got.dtype == torch.float32
         ref = MT.fused_mask_tail_plain(*args)
         assert _err(got, ref) <= 0.125
         assert _mismatch_share(got, ref) <= 1e-3
     with pytest.raises(ValueError, match="bf16"):
         MT.fused_mask_tail(up1g.float(), w2q, b2, hr0q, hyper, H=H, W=W)
+
+
+@pytest.mark.cuda
+def test_device_ms_times_an_untraced_call_by_events(cuda_device,
+                                                    monkeypatch):
+    """chip_smoke.device_ms: a call none of whose traces holds the card's
+    events is timed by CUDA events over calls back to back (run_ms, which
+    includes host gaps, so at least the traced time) and listed in
+    UNTRACED with no kernel names; later calls trace again."""
+    import chip_smoke
+    import torch.profiler
+
+    class EmptyTrace:
+        def __init__(self, **kw):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return []
+
+    monkeypatch.setattr(chip_smoke, "UNTRACED", [])
+    a = torch.randn(4096, 4096, device=cuda_device, dtype=torch.bfloat16)
+    traced = chip_smoke.device_ms(lambda: a @ a, tag="traced")
+    parts = {}
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "profile", EmptyTrace)
+        untraced = chip_smoke.device_ms(lambda: a @ a, by_name=parts,
+                                        tag="untraced")
+    again = chip_smoke.device_ms(lambda: a @ a, tag="again")
+    assert chip_smoke.UNTRACED == ["untraced"] and parts == {}
+    assert 0.8 * traced < untraced < 3 * traced
+    assert 0.5 * traced < again < 2 * traced
