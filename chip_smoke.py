@@ -32,7 +32,10 @@ non-zero and prints no result):
              product must break; B3, B4 and B7's library time is the whole
              function in library calls (cuBLAS projections, SDPA, B4's
              out-projection and F.layer_norm), B3 and B4's SDPA alone
-             beside it; B13's least time is the largest of its bytes and
+             beside it; B3 and B4 also at SAM1's 7 decoder tokens (B3 on
+             its fixed-width instance, which masks the eighth row) and B2
+             at 7 x 7;
+             B13's least time is the largest of its bytes and
              the exact gelu chain's instructions and MUFU operations per
              element (B13_CHAIN_OPS; its compiled loop from cuobjdump's SASS
              is reported beside it)
@@ -45,6 +48,10 @@ non-zero and prints no result):
              pixels (logits within rounding of 0), and the decoder's logits
              for every grid prompt within 2e-5 of the largest (its decoder
              takes the proj_tail route: B3 / B4)
+  reference_sam1  the same on the SAM1 vit_test card (ViT-det trunk, the
+             objectless decoder, the pad path on the 180 x 320 frame, the
+             host small-region pass at min_mask_region_area 100), card
+             against CPU; its decoder's 7 tokens take B2, B3 and B4
   reference_utility  the routes to B11 and B13 on the hiera_test card at
              256^2, card against CPU: the trunk with window_attn="packed"
              in f32 (features within 2e-4; B11 on every window block) and
@@ -83,6 +90,20 @@ non-zero and prints no result):
              frames: the trunk once per flush, one tower call per pair;
              launches per flush; the only host syncs in the frame loop are
              the flushes' validity reads
+  sam1_slice the amg_slice's first 30 frames with SAM1 (sam_version "",
+             sam_encoder vit_h: the ViT-det at full width, 1024^2, seeded
+             random bf16 weights, gates at 0, min_mask_region_area 100):
+             the 680x1200 frames fill 580 x 1024 of the padded square; per
+             segmented keyframe B2 2, B3 3, B4 2 (7 decoder tokens, the
+             proj_tail route), no B1 (the trunk runs no kernel); the only
+             host syncs in the frame loop are the small-region pass's
+  checkpoint seeded random weights at full width under the official keys,
+             torch.save'd and loaded through the factories:
+             sam_vit_h_4b8939.pth (build_sam_mask_source), a PE-Core-L14-336
+             open_clip checkpoint (build_clip_embedder, TextRegion), a
+             merger model.pt (load_merger); each model's outputs bit-equal
+             to the same tree's through from_jax_params; bytes, write and
+             load-and-convert seconds
   reference_crop  the crop ``hovsg`` embedder on a SigLIP-structured card
              built here (no class token, attention pooling, 224^2 / 14 = 256
              tokens, so the tower takes kernel B10; bidirectional text
@@ -134,13 +155,14 @@ non-zero and prints no result):
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
 
-    python3 chip_smoke.py --profile PATH [--image-size 1280 | --crop | --cli]
+    python3 chip_smoke.py --profile PATH [--image-size 1280 | --crop | --cli
+                                          | --sam1]
 
-runs only the amg_slice (the amg1280_slice, the crop_slice, the cli) three
-times: untraced, traced (the card's activity, torch.profiler; the kernel
-table written to PATH; the cli's --run loop only, with B12's device time per
-embedded keyframe; at 1280, B9b's device time per segmented keyframe),
-untraced again.
+runs only the amg_slice (the amg1280_slice, the crop_slice, the cli, the
+sam1_slice) three times: untraced, traced (the card's activity,
+torch.profiler; the kernel table written to PATH; the cli's --run loop only,
+with B12's device time per embedded keyframe; at 1280, B9b's device time per
+segmented keyframe), untraced again.
 """
 from __future__ import annotations
 
@@ -285,6 +307,15 @@ SAM_LIVE = {"precomputed": False, "sam_encoder": "hiera_l",
             "sam_version": "2.1", "points_per_side": 16, "image_size": 1024,
             "pred_iou_th": 0.0, "stability_score_th": 0.0,
             "nms_score_th": 0.0, "gate_prompts": 128}
+# the SAM1 tier (the reference's sam_version ""): ViT-H at 1024^2, the same
+# grid and gates; min_mask_region_area stays at SAM1's default, 100, so the
+# host small-region pass runs
+SAM1_LIVE = dict(SAM_LIVE, sam_encoder="vit_h", sam_version="")
+# launches per segmented keyframe of the SAM1 path: the ViT-det trunk runs
+# no kernel (its attention is the reference's plain einsums); the decoder's
+# 7 tokens take the proj_tail route as SAM2's 8 do
+SAM1_LAUNCHES_PER_KF = {"windowed_attention": 2, "cross_t2i": 3,
+                        "cross_i2t_tail": 2}
 
 
 def emit(phase: str, **kw) -> None:
@@ -855,7 +886,8 @@ def check_b1(dev, dtype, peaks, tol):
 # windows and decoder tokens, and the SigLIP-384 text tower (one prompt of
 # 64 tokens; its q, k, v are head-split views of one packed projection too)
 B2_SHAPES = {"stage1": (1024, 2, 64, 64, 72), "stage3": (25, 8, 196, 196, 72),
-             "decoder": (256, 8, 8, 8, 32), "text": (1, 16, 64, 64, 72)}
+             "decoder": (256, 8, 8, 8, 32), "text": (1, 16, 64, 64, 72),
+             "decoder_sam1": (256, 8, 7, 7, 32)}
 
 
 def check_b2(dev, dtype, peaks, tol, which):
@@ -882,18 +914,24 @@ def check_b2(dev, dtype, peaks, tol, which):
 
 
 def _cross_inputs(dev, dtype, Bk, B=256, T=8, L=4096, D=128, dk=256):
+    """The decoder's cross-attention operands. Fewer than 8 tokens (SAM1's
+    7) take the 8-token draw's first T tokens, so that the two rows time
+    the same values."""
     gen = torch.Generator(device=dev).manual_seed(3)
 
     def rnd(*shape, std=1.0, dt=dtype):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dt)
 
-    return dict(q=rnd(B, T, D), keys=rnd(Bk, L, dk),
-                wk=rnd(dk, D, std=dk ** -0.5), wv=rnd(dk, D, std=dk ** -0.5),
-                pe=rnd(1, L, D), bv=rnd(D, dt=torch.float32),
-                vt=rnd(B, T, D), wout=rnd(D, dk, std=D ** -0.5),
-                bout=rnd(dk, dt=torch.float32),
-                g=rnd(dk, std=0.1, dt=torch.float32) + 1.0,
-                b=rnd(dk, dt=torch.float32))
+    x = dict(q=rnd(B, max(T, 8), D), keys=rnd(Bk, L, dk),
+             wk=rnd(dk, D, std=dk ** -0.5), wv=rnd(dk, D, std=dk ** -0.5),
+             pe=rnd(1, L, D), bv=rnd(D, dt=torch.float32),
+             vt=rnd(B, max(T, 8), D), wout=rnd(D, dk, std=D ** -0.5),
+             bout=rnd(dk, dt=torch.float32),
+             g=rnd(dk, std=0.1, dt=torch.float32) + 1.0,
+             b=rnd(dk, dt=torch.float32))
+    for k in ("q", "vt"):
+        x[k] = x[k][:, :T].contiguous()
+    return x
 
 
 def _small_head_split(t, B, heads):
@@ -937,12 +975,15 @@ def _b4_library(x, heads):
     return library
 
 
-def check_b3(dev, dtype, peaks, tol, Bk):
+def check_b3(dev, dtype, peaks, tol, Bk, T=8):
+    """B3 at the SAM decoder's shape with ``T`` tokens: 8 (SAM2), or 7
+    (SAM1), which the fixed-width instance takes with its eighth row
+    masked."""
     from ovo_tpu_torch.ops.attention import (cross_t2i_from_keys,
                                              cross_t2i_from_keys_plain)
 
     heads, dh = 8, 16
-    x = _cross_inputs(dev, dtype, Bk)
+    x = _cross_inputs(dev, dtype, Bk, T=T)
     (B, T, D), (_, L, dk) = x["q"].shape, x["keys"].shape
     args = (x["q"], x["keys"], x["wk"], x["wv"], x["pe"], x["bv"], heads)
     got, ref = cross_t2i_from_keys(*args), cross_t2i_from_keys_plain(*args)
@@ -970,12 +1011,14 @@ def check_b3(dev, dtype, peaks, tol, Bk):
                    shape=[B, T, L, dk, D], sdpa_ms=sdpa_ms, **shares)
 
 
-def check_b4(dev, dtype, peaks, tol, Bk):
+def check_b4(dev, dtype, peaks, tol, Bk, T=8):
+    """B4 at the SAM decoder's shape with ``T`` tokens (8: SAM2; 7: SAM1,
+    whose tokens the kernel rounds up to 8 columns, the eighth masked)."""
     from ovo_tpu_torch.ops.attention import (cross_i2t_tail_from_keys,
                                              cross_i2t_tail_from_keys_plain)
 
     heads, dh = 8, 16
-    x = _cross_inputs(dev, dtype, Bk)
+    x = _cross_inputs(dev, dtype, Bk, T=T)
     (B, T, D), (_, L, dk) = x["q"].shape, x["keys"].shape
     args = (x["keys"], x["wk"], x["pe"], x["q"], x["vt"], x["wout"],
             x["bout"], x["g"], x["b"], heads)
@@ -1786,6 +1829,235 @@ class WallScene:
 
 
 # ---------------------------------------------------------------------------
+# checkpoints in the official layouts
+# ---------------------------------------------------------------------------
+
+def flat_params(tree, prefix: str = "") -> dict:
+    """{dotted path: f32 numpy array} of a param tree: nested dicts and
+    lists of arrays (the JAX package's trees), or an ``nn.Module`` (the
+    port's, whose parameters carry the same paths)."""
+    from ovo_tpu_torch.models.convert_jax import flatten_tree
+
+    items = ([(k, v.detach().float().cpu()) for k, v in
+              tree.named_parameters()]
+             if isinstance(tree, torch.nn.Module) else flatten_tree(tree))
+    return {prefix + k: np.asarray(v, np.float32) for k, v in items}
+
+
+def nest_params(flat: dict):
+    """The nested tree of a {dotted path: array} map (numeric keys become
+    list positions): what ``from_jax_params`` takes."""
+    root = {}
+    for path, val in flat.items():
+        node, keys = root, path.split(".")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = val
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
+
+
+def official_state_dict(kind: str, params) -> dict:
+    """A param tree laid out under an official checkpoint's keys, the
+    inverse of the converters (``models/convert.py``, ``convert_sam.py``):
+    ``kind`` "sam1" (segment_anything's ``sam_vit_*.pth``), "sam2" (SAM 2.1's
+    ``model`` dict), "clip" (open_clip / PE: OpenAI-style visual tower, text
+    tower at the root) or "merger" (``nn.TransformerEncoder`` layers and a
+    Sequential head). ``params``: a tree or ``flat_params``' map. Returns
+    {key: f32 CPU tensor}. A test holds it: fed to the reference's
+    converters, its output gives the tree back bit for bit."""
+    f = params if isinstance(params, dict) and all(
+        isinstance(v, np.ndarray) for v in params.values()) \
+        else flat_params(params)
+    sd = {}
+
+    def put(key, arr):
+        sd[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+
+    def n_of(pattern):
+        n = 0
+        while pattern.format(n) in f:
+            n += 1
+        return n
+
+    def lin(dst, src):
+        put(f"{dst}.weight", f[f"{src}.w"].T)
+        if f"{src}.b" in f:
+            put(f"{dst}.bias", f[f"{src}.b"])
+
+    def ln(dst, src):
+        put(f"{dst}.weight", f[f"{src}.scale"])
+        put(f"{dst}.bias", f[f"{src}.bias"])
+
+    def conv(dst, src, bias=True):
+        put(f"{dst}.weight", f[f"{src}.w"].transpose(3, 2, 0, 1))
+        if bias and f"{src}.b" in f:
+            put(f"{dst}.bias", f[f"{src}.b"])
+
+    def conv_t(dst, src):
+        put(f"{dst}.weight", f[f"{src}.w"].transpose(2, 3, 0, 1))
+        put(f"{dst}.bias", f[f"{src}.b"])
+
+    def mlp3(dst, src):
+        for j in range(3):
+            lin(f"{dst}.layers.{j}", f"{src}.l{j}")
+
+    def clip_block(dst, src):
+        ln(f"{dst}.ln_1", f"{src}.ln1")
+        put(f"{dst}.attn.in_proj_weight", f[f"{src}.attn.qkv.w"].T)
+        put(f"{dst}.attn.in_proj_bias", f[f"{src}.attn.qkv.b"])
+        lin(f"{dst}.attn.out_proj", f"{src}.attn.out")
+        ln(f"{dst}.ln_2", f"{src}.ln2")
+        lin(f"{dst}.mlp.c_fc", f"{src}.mlp.fc")
+        lin(f"{dst}.mlp.c_proj", f"{src}.mlp.proj")
+        if f"{src}.ls1" in f:
+            put(f"{dst}.ls_1.gamma", f[f"{src}.ls1"])
+            put(f"{dst}.ls_2.gamma", f[f"{src}.ls2"])
+
+    if kind in ("sam1", "sam2"):
+        sam1 = kind == "sam1"
+        if sam1:
+            te = "image_encoder"
+            conv(f"{te}.patch_embed.proj", "trunk.patch")
+            put(f"{te}.pos_embed", f["trunk.pos_embed"][None])
+            for i in range(n_of("trunk.blocks.{}.norm1.scale")):
+                d, s = f"{te}.blocks.{i}", f"trunk.blocks.{i}"
+                ln(f"{d}.norm1", f"{s}.norm1")
+                lin(f"{d}.attn.qkv", f"{s}.attn.qkv")
+                lin(f"{d}.attn.proj", f"{s}.attn.proj")
+                for ax in ("h", "w"):
+                    put(f"{d}.attn.rel_pos_{ax}", f[f"{s}.attn.rel_pos_{ax}"])
+                ln(f"{d}.norm2", f"{s}.norm2")
+                lin(f"{d}.mlp.lin1", f"{s}.mlp.fc")
+                lin(f"{d}.mlp.lin2", f"{s}.mlp.proj")
+            conv(f"{te}.neck.0", "trunk.neck.conv1", bias=False)
+            ln(f"{te}.neck.1", "trunk.neck.ln1")
+            conv(f"{te}.neck.2", "trunk.neck.conv2", bias=False)
+            ln(f"{te}.neck.3", "trunk.neck.ln2")
+            pe, md = "prompt_encoder", "mask_decoder"
+        else:
+            te = "image_encoder.trunk"
+            conv(f"{te}.patch_embed.proj", "trunk.patch")
+            for key in ("pos_embed", "pos_embed_window"):
+                put(f"{te}.{key}", f[f"trunk.{key}"].transpose(2, 0, 1)[None])
+            for i in range(n_of("trunk.blocks.{}.norm1.scale")):
+                d, s = f"{te}.blocks.{i}", f"trunk.blocks.{i}"
+                ln(f"{d}.norm1", f"{s}.norm1")
+                lin(f"{d}.attn.qkv", f"{s}.attn.qkv")
+                lin(f"{d}.attn.proj", f"{s}.attn.proj")
+                ln(f"{d}.norm2", f"{s}.norm2")
+                lin(f"{d}.mlp.layers.0", f"{s}.mlp.fc")
+                lin(f"{d}.mlp.layers.1", f"{s}.mlp.proj")
+                if f"{s}.proj.w" in f:
+                    lin(f"{d}.proj", f"{s}.proj")
+            n = n_of("neck.convs.{}.w")
+            for j in range(n):   # the checkpoint's lowest resolution first
+                conv(f"image_encoder.neck.convs.{j}.conv",
+                     f"neck.convs.{n - 1 - j}")
+            pe, md = "sam_prompt_encoder", "sam_mask_decoder"
+        put(f"{pe}.pe_layer.positional_encoding_gaussian_matrix",
+            f["prompt.pe_gaussian"])
+        for i in range(4):
+            put(f"{pe}.point_embeddings.{i}.weight",
+                f["prompt.point_embeds"][i][None])
+        put(f"{pe}.not_a_point_embed.weight", f["prompt.not_a_point"][None])
+        put(f"{pe}.no_mask_embed.weight", f["prompt.no_mask"][None])
+
+        def attn(dst, src):
+            for a, b in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"),
+                         ("out_proj", "out")):
+                lin(f"{dst}.{a}", f"{src}.{b}")
+
+        for i in range(n_of("decoder.layers.{}.norm1.scale")):
+            d, s = f"{md}.transformer.layers.{i}", f"decoder.layers.{i}"
+            attn(f"{d}.self_attn", f"{s}.self_attn")
+            attn(f"{d}.cross_attn_token_to_image", f"{s}.cross_t2i")
+            attn(f"{d}.cross_attn_image_to_token", f"{s}.cross_i2t")
+            for k in range(1, 5):
+                ln(f"{d}.norm{k}", f"{s}.norm{k}")
+            lin(f"{d}.mlp.lin1", f"{s}.mlp.fc")
+            lin(f"{d}.mlp.lin2", f"{s}.mlp.proj")
+        attn(f"{md}.transformer.final_attn_token_to_image",
+             "decoder.final_attn")
+        ln(f"{md}.transformer.norm_final_attn", "decoder.norm_final")
+        put(f"{md}.iou_token.weight", f["decoder.iou_token"][None])
+        put(f"{md}.mask_tokens.weight", f["decoder.mask_tokens"])
+        conv_t(f"{md}.output_upscaling.0", "decoder.upscale1")
+        ln(f"{md}.output_upscaling.1", "decoder.upscale_ln")
+        conv_t(f"{md}.output_upscaling.3", "decoder.upscale2")
+        for i in range(n_of("decoder.hyper_mlps.{}.l0.w")):
+            mlp3(f"{md}.output_hypernetworks_mlps.{i}",
+                 f"decoder.hyper_mlps.{i}")
+        mlp3(f"{md}.iou_prediction_head", "decoder.iou_head")
+        if not sam1:
+            put(f"{md}.obj_score_token.weight",
+                f["decoder.obj_score_token"][None])
+            mlp3(f"{md}.pred_obj_score_head", "decoder.obj_head")
+            conv(f"{md}.conv_s0", "decoder.conv_s0")
+            conv(f"{md}.conv_s1", "decoder.conv_s1")
+    elif kind == "clip":
+        w = f["visual.patch.w"]
+        put("visual.conv1.weight", w.transpose(3, 2, 0, 1))
+        if np.any(f["visual.patch.b"]):   # PE's patch conv has no bias
+            put("visual.conv1.bias", f["visual.patch.b"])
+        if "visual.cls" in f:
+            put("visual.class_embedding", f["visual.cls"])
+        if "visual.pos" in f:
+            put("visual.positional_embedding", f["visual.pos"])
+        if "visual.ln_pre.scale" in f:
+            ln("visual.ln_pre", "visual.ln_pre")
+        for i in range(n_of("visual.blocks.{}.ln1.scale")):
+            clip_block(f"visual.transformer.resblocks.{i}",
+                       f"visual.blocks.{i}")
+        ln("visual.ln_post", "visual.ln_post")
+        put("visual.proj", f["visual.proj"])
+        if "visual.attn_pool.probe" in f:
+            ap = "visual.attn_pool"
+            put(f"{ap}.probe", f[f"{ap}.probe"][None])
+            put(f"{ap}.attn.in_proj_weight", np.concatenate(
+                [f[f"{ap}.{x}.w"].T for x in "qkv"]))
+            put(f"{ap}.attn.in_proj_bias", np.concatenate(
+                [f[f"{ap}.{x}.b"] for x in "qkv"]))
+            lin(f"{ap}.attn.out_proj", f"{ap}.out")
+            ln(f"{ap}.layernorm", f"{ap}.ln")
+        put("token_embedding.weight", f["text.tok_embed"])
+        put("positional_embedding", f["text.pos"])
+        for i in range(n_of("text.blocks.{}.ln1.scale")):
+            clip_block(f"transformer.resblocks.{i}", f"text.blocks.{i}")
+        ln("ln_final", "text.ln_final")
+        if "text.proj_bias" in f:
+            put("text_projection.weight", f["text.proj"].T)
+            put("text_projection.bias", f["text.proj_bias"])
+        else:
+            put("text_projection", f["text.proj"])
+        for k in ("logit_scale", "logit_bias"):
+            if k in f:
+                put(k, f[k])
+    elif kind == "merger":
+        for i in range(n_of("blocks.{}.ln1.scale")):
+            d, s = f"encoder.layers.{i}", f"blocks.{i}"
+            ln(f"{d}.norm1", f"{s}.ln1")
+            put(f"{d}.self_attn.in_proj_weight", f[f"{s}.attn.qkv.w"].T)
+            put(f"{d}.self_attn.in_proj_bias", f[f"{s}.attn.qkv.b"])
+            lin(f"{d}.self_attn.out_proj", f"{s}.attn.out")
+            ln(f"{d}.norm2", f"{s}.ln2")
+            lin(f"{d}.linear1", f"{s}.mlp.fc")
+            lin(f"{d}.linear2", f"{s}.mlp.proj")
+        lin("head.0", "head.fc")
+        lin("head.2", "head.proj")
+    else:
+        raise ValueError(f"unknown checkpoint kind {kind!r}")
+    return sd
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -1835,28 +2107,38 @@ def run_reference(dev) -> dict:
                 max_cos_dev=worst)
 
 
-def run_reference_amg(dev) -> dict:
-    """The SAM2 AMG program (hiera_test, 256^2, f32, gates at 0) on the
-    card (kernels B2-B4; its global block is short enough for B2) and on
-    the CPU (plain versions): equal valid sets, seg maps and binary maps
-    equal but for < 0.1% of pixels (a logit within rounding of 0 flips).
-    The NMS stages leave few valid masks on random weights, so the
-    decoder's logits for all grid prompts are compared as well."""
+def run_reference_amg(dev, encoder: str = "hiera_test",
+                      min_area: int = 0) -> dict:
+    """The AMG program (``encoder`` at 256^2, f32, gates at 0) on the card
+    (kernels) and on the CPU (plain versions), on a 180 x 320 frame: equal
+    valid sets, seg maps and binary maps equal but for < 0.1% of pixels (a
+    logit within rounding of 0 flips). The NMS stages leave few valid masks
+    on random weights, so the decoder's logits for all grid prompts are
+    compared as well. hiera_test (reference_amg): SAM2, B2-B4, its global
+    block short enough for B2. vit_test with ``min_area`` 100
+    (reference_sam1): SAM1's trunk (no kernel), pad path and host
+    small-region pass, its decoder's 7 tokens through B2, B3 (padded to its
+    8-token instance in bf16 only) and B4."""
     from ovo_tpu_torch.models.sam.amg import AutomaticMaskSource
     from ovo_tpu_torch.models.sam.model import SAMModel
+    from ovo_tpu_torch.ops import cuda_build
 
-    cpu = SAMModel.random_init("hiera_test", 256, seed=7, device="cpu",
+    cpu = SAMModel.random_init(encoder, 256, seed=7, device="cpu",
                                compute_dtype="float32")
     card = SAMModel(cpu.cfg, copy.deepcopy(cpu.params), dev)
     kw = dict(points_per_side=8, max_masks=32, candidates=64,
               gate_prompts=32, pred_iou_thresh=0.0, stability_thresh=0.0,
-              nms_score_th=0.0)
+              nms_score_th=0.0, min_area=min_area)
     rng = np.random.default_rng(7)
     image = (rng.random((180, 320, 3)) * 255).astype(np.uint8)
     out, logits = {}, {}
     for name, model in (("cuda", card), ("cpu", cpu)):
         source = AutomaticMaskSource(model, **kw)
+        cuda_build.reset_launch_counts()
         seg, bmaps, valid = source.get_masks(image)
+        if name == "cuda":
+            launches = {k: v for k, v in cuda_build.launch_counts().items()
+                        if v}
         out[name] = (seg.cpu().numpy(), bmaps.cpu().numpy(),
                      valid.cpu().numpy())
         # the decoder's logits for every grid prompt: B2-B4 in context
@@ -1869,19 +2151,20 @@ def run_reference_amg(dev) -> dict:
     logit_err = float((logits["cuda"].cpu() - logits["cpu"]).abs().max())
     seg_diff, bmap_diff = float((s1 != s2).mean()), float((b1 != b2).mean())
     if not np.array_equal(v1, v2) or v1.sum() < 1:
-        raise AssertionError(f"reference_amg: valid sets differ or empty "
-                             f"({v1.sum()} / {v2.sum()})")
+        raise AssertionError(f"reference_amg {encoder}: valid sets differ "
+                             f"or empty ({v1.sum()} / {v2.sum()})")
     if seg_diff >= 1e-3 or bmap_diff >= 1e-3:
-        raise AssertionError(f"reference_amg: seg maps differ on "
+        raise AssertionError(f"reference_amg {encoder}: seg maps differ on "
                              f"{seg_diff:.2e} of pixels, masks {bmap_diff:.2e}")
     # f32 sums in another order through the trunk and the decoder: 1.6e-6
     # of the largest logit measured on an H100; the limit is 2e-5 of it
     if logit_err > 2e-5 * max(1.0, logit_scale):
-        raise AssertionError(f"reference_amg: decoder logits differ by "
-                             f"{logit_err} (largest {logit_scale})")
-    return dict(valid_masks=int(v1.sum()), seg_pixels_differing=seg_diff,
+        raise AssertionError(f"reference_amg {encoder}: decoder logits "
+                             f"differ by {logit_err} (largest {logit_scale})")
+    return dict(encoder=encoder, valid_masks=int(v1.sum()),
+                seg_pixels_differing=seg_diff,
                 mask_pixels_differing=bmap_diff, logit_max_abs_err=logit_err,
-                logit_max_abs=logit_scale)
+                logit_max_abs=logit_scale, launches=launches)
 
 
 def _decoder_inputs(rng, side, dtype, dev):
@@ -2281,6 +2564,110 @@ def run_reference_batch(dev) -> dict:
                 keyframes=k1, batches=b1, tower_calls=t1, max_cos_dev=worst)
 
 
+def run_checkpoint(dev) -> dict:
+    """Checkpoints through the normal factories: seeded random weights at
+    full width, laid out under the official keys (official_state_dict) and
+    written with torch.save to a temporary directory --
+    sam_vit_h_4b8939.pth through build_sam_mask_source, a PE-Core-L14-336
+    open_clip checkpoint through build_clip_embedder(..., "TextRegion"), a
+    merger model.pt through load_merger. Each loaded model's output (one
+    keyframe's masks, its descriptors and two text embeddings, the fused
+    descriptors of 96 masks) equals, bit for bit, that of the same tree
+    carried in by from_jax_params. Per file: bytes, write seconds,
+    load-and-convert seconds."""
+    from ovo_tpu_torch.models.clip import CLIPModel, build_clip_embedder
+    from ovo_tpu_torch.models.convert_jax import merger_from_jax_params
+    from ovo_tpu_torch.models.merger import init_merger, load_merger
+    from ovo_tpu_torch.models.sam.amg import build_sam_mask_source
+    from ovo_tpu_torch.models.sam.model import SAMModel
+
+    scene = replica_wall_scene(1)
+    image = scene[0][1]
+    _, masks = scene.masks(0)
+    masks = torch.from_numpy(masks).to(dev)
+    valid = masks.any(dim=(1, 2))
+    card, merger_width = "PE-Core-L14-336", 1152
+    clip_cfg = dict(REPLICA_CONFIG["semantic"]["clip"], model_card=card)
+    record = {}
+
+    def save(name, sd, path):
+        t0 = time.time()
+        torch.save(sd, path)
+        record[name] = dict(bytes=os.path.getsize(path),
+                            write_s=time.time() - t0)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def load(name, fn):
+        sync()
+        t0 = time.time()
+        out = fn()
+        sync()
+        record[name]["load_and_convert_s"] = time.time() - t0
+        return out
+
+    def same(name, got, ref):
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"checkpoint {name}: the loaded model's "
+                                 f"output differs from the tree's")
+        record[name]["bit_equal"] = True
+
+    with tempfile.TemporaryDirectory() as tmp:
+        flat = flat_params(SAMModel.random_init("vit_h", 1024, seed=11,
+                                                device=dev).params)
+        save("sam_vit_h", {"model": official_state_dict("sam1", flat)},
+             os.path.join(tmp, "sam_vit_h_4b8939.pth"))
+        src = load("sam_vit_h", lambda: build_sam_mask_source(
+            dict(SAM1_LIVE, sam_ckpt_path=tmp), device=dev))
+        ref = copy.copy(src)
+        ref.model = SAMModel.from_jax_params("vit_h", 1024,
+                                             nest_params(flat), device=dev)
+        del flat
+        got = src.get_masks(image, 0)
+        same("sam_vit_h", got, ref.get_masks(image, 0))
+        record["sam_vit_h"]["valid_masks"] = int(got[2].sum())
+        del src, ref, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        model = CLIPModel.random_init(card, seed=12, device=dev)
+        flat = {**flat_params(model.visual, "visual."),
+                **flat_params(model.text, "text."),
+                "logit_scale": model.logit_scale.cpu().numpy()}
+        del model
+        path = os.path.join(tmp, "open_clip_pytorch_model.bin")
+        save("pe_core_l14_336", official_state_dict("clip", flat), path)
+        emb = load("pe_core_l14_336", lambda: build_clip_embedder(
+            dict(clip_cfg, ckpt_path=path), "TextRegion", device=dev))
+        ref = copy.copy(emb)
+        ref.model = CLIPModel.from_jax_params(card, nest_params(flat),
+                                              device=dev)
+        del flat
+        texts = ["a chair", "a wall"]
+        same("pe_core_l14_336",
+             (emb.embed_masks(image, masks, valid), emb.embed_text(texts)),
+             (ref.embed_masks(image, masks, valid), ref.embed_text(texts)))
+        del emb, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator(device=dev).manual_seed(13)
+        flat = flat_params(init_merger(gen, d_model=merger_width,
+                                       device=dev))
+        save("merger", official_state_dict("merger", flat),
+             os.path.join(tmp, "model.pt"))
+        merger = load("merger", lambda: load_merger(tmp, device=dev))
+        ref = merger_from_jax_params(nest_params(flat), dev)
+        clips = torch.nn.functional.normalize(torch.randn(
+            (96, 3, merger_width), generator=gen, device=dev), dim=-1)
+        same("merger", merger(clips), ref(clips))
+    return record
+
+
 def _kernel_names() -> set:
     """The __global__ function names of the port's CUDA sources."""
     import re
@@ -2361,11 +2748,26 @@ def _validity_read_sites() -> set:
             for n in range(first, first + len(lines))}
 
 
+def _small_region_sites() -> set:
+    """The lines of the SAM1 AMG's small-region host pass
+    (``AutomaticMaskSource._small_regions``: the masks read to the host,
+    the fixed ones staged back), as the sync report names them."""
+    import inspect
+
+    from ovo_tpu_torch.models.sam.amg import AutomaticMaskSource
+
+    lines, first = inspect.getsourcelines(AutomaticMaskSource._small_regions)
+    return {f"models/sam/amg.py:{n}"
+            for n in range(first, first + len(lines))}
+
+
 def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
-              image_size=1024, sam_batch=1):
+              image_size=1024, sam_batch=1, sam1=False):
     """OVOSemMap on the 680x1200 wall scene, segmenting every 10th frame:
     precomputed-style masks from the scene, or (``live``) the SAM2 Hiera-L
-    automatic masks built from the config at ``image_size``; ``clip``
+    automatic masks built from the config at ``image_size``, or with
+    ``sam1`` SAM1's ViT-H (the sam1_slice: the only host syncs allowed in
+    its frame loop are those of the small-region host pass); ``clip``
     replaces the config's clip section; ``sam_batch`` > 1 micro-batches the
     live masks (the batch_slice: the only host syncs allowed in its frame
     loop are the flushes' validity reads). Returns the phase's record and
@@ -2378,6 +2780,8 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
            if live else ("crop_slice" if clip else "slice"))
     if sam_batch > 1:
         tag = "batch_slice"
+    if sam1:
+        tag = "sam1_slice"
     t0 = time.time()
     scene = replica_wall_scene(frames)
     masks = {fid: scene.masks(fid) for fid in range(0, len(scene), 10)}
@@ -2390,7 +2794,8 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         # clip section given, seeded random weights, on the card); so is the
         # live mask source
         if live:
-            cfg["semantic"]["sam"] = dict(SAM_LIVE, image_size=image_size,
+            cfg["semantic"]["sam"] = dict(SAM1_LIVE if sam1 else SAM_LIVE,
+                                          image_size=image_size,
                                           batch=sam_batch)
             source = None
         else:
@@ -2465,7 +2870,8 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         expect.update(rope_packed_attention=depth_layers
                       * embedder.tower_calls, masked_pool=n_emb)
     if live:
-        per_kf = (AMG_LAUNCHES_PER_KF if image_size == 1024
+        per_kf = (SAM1_LAUNCHES_PER_KF if sam1
+                  else AMG_LAUNCHES_PER_KF if image_size == 1024
                   else AMG1280_LAUNCHES_PER_KF)
         expect.update({k: v * n_seg for k, v in per_kf.items()})
         # a micro-batch runs the trunk once for its keyframes
@@ -2476,7 +2882,8 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         raise AssertionError(f"{tag}: launches {counts}, expected {expect}")
     # the batch_slice's flushes read each keyframe's mask validity on the
     # host (the reference's skip-on-empty); nothing else may sync
-    allowed = _validity_read_sites() if sam_batch > 1 else set()
+    allowed = (_validity_read_sites() if sam_batch > 1
+               else _small_region_sites() if sam1 else set())
     if set(loop_syncs) - allowed:
         raise AssertionError(f"{tag}: host syncs in the frame loop: "
                              f"{collections.Counter(loop_syncs)}")
@@ -2500,6 +2907,16 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
                 host_syncs=len(sync_list), host_syncs_in_loop=len(loop_syncs),
                 host_sync_sites=dict(collections.Counter(sync_list)),
                 launches=counts, **extra)
+    if sam1:
+        per_seg = {k: counts[k] / n_seg for k in (
+            "windowed_attention", "cross_t2i", "cross_i2t_tail",
+            "flash_attention")}
+        if min(per_seg[k] for k in SAM1_LAUNCHES_PER_KF) <= 0 or \
+                per_seg["flash_attention"]:
+            raise AssertionError(f"{tag}: launches per segmented keyframe "
+                                 f"{per_seg}")
+        record.update(launches_per_segmented_keyframe=per_seg,
+                      encoder=SAM1_LIVE["sam_encoder"])
     if sam_batch > 1:
         record.update(sam_batch=sam_batch, batches=recorder.batches,
                       tower_calls=embedder.tower_calls,
@@ -3023,7 +3440,8 @@ def _is_b12_kernel(name: str) -> bool:
 
 
 def run_kernel_device(dev) -> dict:
-    """B5, B6, B1, B2, B11, B9a, B3, B4, B7, B9b, B13, B12a, B12b and B14 in
+    """B5, B6, B1, B2, B11, B9a, B3, B4 (also at SAM1's 7 tokens, B3's
+    8-token time beside it), B7, B9b, B13, B12a, B12b and B14 in
     bf16 and B10 in f32 at the kernel phase's shapes: the card's kernel time
     per call beside the library's on the same operands (device_ms): SDPA for
     B5 (on the rotated heads), B6 (the path's layout, the masks as a boolean
@@ -3138,6 +3556,31 @@ def run_kernel_device(dev) -> dict:
             library_device_ms=device_ms(
                 _b4_library(x, heads), tag=f"cross_i2t_tail_keys{bk} library"))
         del x, t2i, i2t
+        # SAM1's 7 tokens (the 8-token draw's first 7): B3 at 7 and at 8
+        # tokens, in turns (the card's clock drifts between calls further
+        # apart); and B4
+        x8 = _cross_inputs(dev, bf, bk)
+        x = _cross_inputs(dev, bf, bk, T=7)
+        t2i = (x["q"], x["keys"], x["wk"], x["wv"], x["pe"], x["bv"], heads)
+        t2i8 = (x8["q"],) + t2i[1:]
+        i2t = (x["keys"], x["wk"], x["pe"], x["q"], x["vt"], x["wout"],
+               x["bout"], x["g"], x["b"], heads)
+        calls = {"8": lambda: cross_t2i_from_keys(*t2i8),
+                 "7": lambda: cross_t2i_from_keys(*t2i)}
+        turns = [[k, device_ms(calls[k], tag=f"cross_t2i_sam1_keys{bk} {k}")]
+                 for k in ("8", "7", "7", "8")]
+
+        def mean(k):
+            return statistics.mean(ms for name, ms in turns if name == k)
+
+        out[f"cross_t2i_sam1_keys{bk}"] = dict(
+            kernel_device_ms=mean("7"), eight_tokens_device_ms=mean("8"),
+            turns=turns)
+        out[f"cross_i2t_tail_sam1_keys{bk}"] = dict(
+            kernel_device_ms=device_ms(
+                lambda: cross_i2t_tail_from_keys(*i2t),
+                tag=f"cross_i2t_tail_sam1_keys{bk}"))
+        del x, x8, t2i, t2i8, i2t, calls
         # B7 at the 1280^2 decoder's shape (check_b7's): the kq launch and
         # the tensor-core kernel apart, which the trace must name
         x = _cross_inputs(dev, bf, bk, B=B9_SHAPE["B"], L=B9_SHAPE["L"])
@@ -3249,9 +3692,10 @@ def _profile_summary(prof, wall: float, path: str) -> dict:
 
 def main(argv) -> int:
     """No arguments: every phase. ``--profile PATH [--image-size N |
-    --crop | --cli]``: only gpu, build and the amg_slice (or, at 1280, the
-    amg1280_slice; with ``--crop`` the crop_slice; with ``--cli`` the cli,
-    its ``--run`` loop traced) three times: untraced, then with the card's
+    --crop | --cli | --sam1]``: only gpu, build and the amg_slice (or, at
+    1280, the amg1280_slice; with ``--crop`` the crop_slice; with ``--cli``
+    the cli, its ``--run`` loop traced; with ``--sam1`` the sam1_slice)
+    three times: untraced, then with the card's
     activity traced by torch.profiler (the busy share is read within that
     run, the kernel table written to PATH), then untraced again."""
     profile_path = argv[argv.index("--profile") + 1] \
@@ -3296,6 +3740,8 @@ def main(argv) -> int:
         tag = "amg_slice" if image_size == 1024 else f"amg{image_size}_slice"
         if "--crop" in argv:
             kw, tag = dict(frames=30, clip=CROP_CLIP), "crop_slice"
+        if "--sam1" in argv:
+            kw, tag = dict(live=True, frames=30, sam1=True), "sam1_slice"
         emit(tag, **run_slice(dev, **kw)[0])
         emit("profile", **run_slice(dev, profile_path, **kw)[0])
         emit(tag, **run_slice(dev, **kw)[0])
@@ -3326,6 +3772,13 @@ def main(argv) -> int:
     checks += [(check_b2, f"b2_{w}", 1e-2, {"which": w}) for w in B2_SHAPES]
     checks += [(check_b3, f"b3_keys{bk}", 3e-2, {"Bk": bk}) for bk in (1, 256)]
     checks += [(check_b4, f"b4_keys{bk}", 6e-2, {"Bk": bk})
+               for bk in (1, 256)]
+    # B3 / B4 at SAM1's 7 tokens in bf16 (the SAM1 decoder's dtype), the
+    # same limits: B3 on the fixed-width instance (its eighth row masked),
+    # B4 with its eighth token column masked
+    checks += [(check_b3, f"b3_sam1_keys{bk}", 3e-2, {"Bk": bk, "T": 7})
+               for bk in (1, 256)]
+    checks += [(check_b4, f"b4_sam1_keys{bk}", 6e-2, {"Bk": bk, "T": 7})
                for bk in (1, 256)]
     # B9a / B9b, B7, B8 at the 1280^2 decoder's shapes, shared and per-prompt
     # image sides. bf16: both sides round the normalized weights, so a
@@ -3366,7 +3819,9 @@ def main(argv) -> int:
     # 128 of the 256 grid prompts; both counts are checked.
     checks += [(check_b13, f"b13_b{b}", 0.125, {"B": b}) for b in (128, 256)]
     for check, tag, bf16_tol, kw in checks:
-        dtypes = ((torch.bfloat16, bf16_tol),) if check is check_b13 else (
+        # B13 is defined in bf16 only; SAM1's decoder runs in bf16
+        dtypes = ((torch.bfloat16, bf16_tol),) if (
+            check is check_b13 or "sam1" in tag) else (
             (torch.bfloat16, bf16_tol), (torch.float32, 1e-4))
         for dtype, tol in dtypes:
             r = check(dev, dtype, peaks, tol, **kw)
@@ -3376,6 +3831,7 @@ def main(argv) -> int:
 
     emit("reference", **run_reference(dev))
     emit("reference_amg", **run_reference_amg(dev))
+    emit("reference_sam1", **run_reference_amg(dev, "vit_test", min_area=100))
     emit("reference_utility", **run_reference_utility(dev))
     utility = run_utility_path(dev)
     emit("utility_path", **utility)
@@ -3397,6 +3853,10 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     emit("batch_slice", **run_slice(dev, live=True, frames=30,
                                     sam_batch=2)[0])
+    torch.cuda.empty_cache()
+    emit("sam1_slice", **run_slice(dev, live=True, frames=30, sam1=True)[0])
+    torch.cuda.empty_cache()
+    emit("checkpoint", **run_checkpoint(dev))
     torch.cuda.empty_cache()
     crop, crop_map = run_slice(dev, frames=30, clip=CROP_CLIP)
     emit("crop_slice", **crop)

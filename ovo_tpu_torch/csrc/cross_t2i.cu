@@ -320,13 +320,16 @@ struct T2iArgs {
 
 // DKC, DC, HC, NTC: dk, D, heads and tokens fixed at compile time (0: read
 // at run time). The SAM decoder's widths (256, 128, 8, 8) get their own
-// instantiation, whose loops lose their run-time guards.
+// instantiation, whose loops lose their run-time guards. It also takes
+// fewer tokens (SAM1's 7): rows keep the layout of NTC tokens a head, and
+// the tail tokens' rows read zero q and are not stored (query rows are
+// independent).
 template <int DKC, int DC, int HC, int NTC>
 __global__ void __launch_bounds__(M_THREADS, 1) t2i_mma_kernel(T2iArgs a) {
   const int dk = DKC ? DKC : a.dk, D = DC ? DC : a.D;
   const int DP = DC ? (DC + 15) / 16 * 16 : a.DP, NT = NTC ? NTC : a.NT;
   const int heads = HC ? HC : a.heads;
-  const int dh = D / heads, R = heads * NT;
+  const int dh = D / heads, R = heads * NT, nt_in = a.NT;  // tokens given
   const int LDK = dk + 8, LDE = DP + 8;  // odd 16-byte units: ldmatrix rows
                                          // fall in distinct banks
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -356,7 +359,8 @@ __global__ void __launch_bounds__(M_THREADS, 1) t2i_mma_kernel(T2iArgs a) {
   for (int i = tid; i < RMAX * DP; i += M_THREADS) {
     const int r = i / DP, d = i % DP;
     bf16 v = zero;
-    if (r < R && d < D && d / dh == r / NT) v = qb[(r % NT) * D + d];
+    if (r < R && d < D && d / dh == r / NT && r % NT < nt_in)
+      v = qb[(r % NT) * D + d];
     qb_s[r * LDE + d] = v;
   }
   for (int i = tid; i < 2 * KC * (DP - D); i += M_THREADS) {
@@ -581,7 +585,7 @@ __global__ void __launch_bounds__(M_THREADS, 1) t2i_mma_kernel(T2iArgs a) {
 
   // out = pk Wv + bv over the n8 column tiles of this row tile's heads,
   // the tiles shared out between the two halves
-  bf16* ob = a.out + (size_t)b * NT * D;
+  bf16* ob = a.out + (size_t)b * nt_in * D;
   const int nt_lo = h_lo * dh / 8, nt_hi = ((h_hi + 1) * dh + 7) / 8;
   for (int nt = nt_lo + kh; nt < nt_hi; nt += 2) {
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -600,7 +604,7 @@ __global__ void __launch_bounds__(M_THREADS, 1) t2i_mma_kernel(T2iArgs a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = r0 + g + 8 * (e >> 1), d = 8 * nt + 2 * c + (e & 1);
-      if (r < R && d < D && d / dh == r / NT)
+      if (r < R && d < D && d / dh == r / NT && r % NT < nt_in)
         ob[(r % NT) * D + d] = __float2bfloat16_rn(acc[e] + a.bv[d]);
     }
   }
@@ -636,7 +640,7 @@ cudaError_t launch_mma(const void* q, const void* keys, const void* wk,
   const size_t smem = sizeof(float) * 2 * RMAX * 2 +
                       sizeof(bf16) * ((size_t)RMAX * (LDK + LDE + LDPB) +
                                       2 * (size_t)KC * (LDK + LDE));
-  const bool sam = dk == 256 && D == 128 && heads == 8 && NT == 8;
+  const bool sam = dk == 256 && D == 128 && heads == 8 && NT <= 8;
   auto kernel = sam ? t2i_mma_kernel<256, 128, 8, 8> : t2i_mma_kernel<0, 0, 0, 0>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -208,11 +208,13 @@ class CLIPModel:
 
     @classmethod
     def from_jax_params(cls, name: Card, params: Dict[str, Any],
-                        device="cuda") -> "CLIPModel":
+                        device="cuda", tokenizer=None) -> "CLIPModel":
         """Model from the JAX package's param tree (numpy leaves), e.g.
-        ``ovo_tpu``'s ``CLIPModel.params`` converted with ``np.asarray``:
-        the ``visual`` tree (with the SigLIP MAP head's MLP when present)
-        and, when present, ``text``, ``logit_scale`` and ``logit_bias``."""
+        ``ovo_tpu``'s ``CLIPModel.params`` converted with ``np.asarray``, or
+        a converted checkpoint (``models/convert.py``): the ``visual`` tree
+        (with the SigLIP MAP head's MLP when present, its keys' norm when
+        not None) and, when present, ``text``, ``logit_scale`` and
+        ``logit_bias``."""
         from .convert_jax import load_jax_params
 
         dev = resolve_device(device)
@@ -220,14 +222,15 @@ class CLIPModel:
         pool = params["visual"].get("attn_pool") or {}
         hidden = (pool["mlp"]["fc"]["w"].shape[1]
                   if pool.get("mlp") is not None else None)
-        visual = vit_mod.VisionTransformer(cfg.vision, device=dev,
-                                           map_mlp_hidden=hidden)
+        visual = vit_mod.VisionTransformer(
+            cfg.vision, device=dev, map_mlp_hidden=hidden,
+            pool_ln=pool.get("ln") is not None)
         load_jax_params(visual, params["visual"], dev)
         text = (text_mod.text_from_jax_params(cfg.text, params["text"], dev)
                 if params.get("text") is not None else None)
         kw = {k: float(params[k]) for k in ("logit_scale", "logit_bias")
               if params.get(k) is not None}
-        return cls(cfg, visual, dev, text=text, **kw)
+        return cls(cfg, visual, dev, text=text, tokenizer=tokenizer, **kw)
 
     # -- preprocessing (resize + normalize) ------------------------------
     def preprocess(self, images: torch.Tensor) -> torch.Tensor:
@@ -386,18 +389,21 @@ class CropCLIPEmbedder(BaseCLIPEmbedder):
 def build_clip_embedder(clip_cfg: Dict[str, Any], embed_type: str,
                         device="cuda"):
     """Factory from the reference's clip config section: TextRegion, or a
-    crop embedder for every other ``embed_type``, on a registry card with
-    seeded random weights (loading an open_clip checkpoint raises)."""
+    crop embedder for every other ``embed_type``, on a registry card; the
+    open_clip / PE checkpoint at ``ckpt_path`` when it exists
+    (``convert.load_clip_checkpoint``), else seeded random weights."""
     card = clip_cfg.get("model_card", "SigLIP-384").replace(
         "PE-Core-L-14-336", "PE-Core-L14-336")
     ckpt_path = clip_cfg.get("ckpt_path")
     if ckpt_path and os.path.exists(ckpt_path):
-        raise NotImplementedError("loading an open_clip checkpoint is not "
-                                  "ported yet")
-    model = CLIPModel.random_init(card, device=device)
-    if ckpt_path:
-        print(f"[ovo_tpu_torch] WARNING: checkpoint {ckpt_path} not found; "
-              f"using random weights for {card}")
+        from .convert import load_clip_checkpoint
+
+        model = load_clip_checkpoint(card, ckpt_path, device=device)
+    else:
+        model = CLIPModel.random_init(card, device=device)
+        if ckpt_path:
+            print(f"[ovo_tpu_torch] WARNING: checkpoint {ckpt_path} not "
+                  f"found; using random weights for {card}")
     if embed_type == "TextRegion":
         from .textregion import TextRegionEmbedder
 

@@ -64,7 +64,10 @@ def load_jax_params(module_or_tree: Union[nn.Module, Dict[str, Any]],
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {arr.shape} != "
                                  f"{tuple(p.shape)}")
-            p.data = torch.from_numpy(np.array(arr)).to(
+            # a C-order copy: a converted checkpoint's leaves are transposed
+            # views, and a weight kept column-major on the device takes
+            # another cuBLAS path, which sums in another order
+            p.data = torch.from_numpy(np.array(arr, order="C")).to(
                 device=device or p.device, dtype=dtype or p.dtype)
     return module
 

@@ -5,9 +5,9 @@ A transformer encoder over the three candidate CLIP vectors of a segment
 (global / masked crop / bbox crop), an MLP head giving one logit per token,
 softmax weights, the weighted sum, L2-normalized. Its attention has head size
 144 (1152 / 8), which the reference routes to XLA: here the plain route of
-``ops/attention.dot_product_attention``, on either device. The train step
-comes with a training slice; loading the trained ``model.pt`` comes with its
-converter.
+``ops/attention.dot_product_attention``, on either device. The trained
+``model.pt`` loads through ``models/convert.py``; the train step comes with
+a training slice.
 """
 from __future__ import annotations
 
@@ -81,12 +81,16 @@ class LearnedMerger:
 
 def load_merger(path: Optional[str], device="cuda",
                 seed: int = 0) -> LearnedMerger:
-    """The reference's trained merger if ``path/model.pt`` exists (its
-    converter is not ported: raises), else seeded random weights of the same
-    structure on ``device``."""
+    """The reference's trained merger if ``path/model.pt`` exists (loaded as
+    the reference loads it: ``torch.load``, ``convert_merger_state_dict``),
+    else seeded random weights of the same structure on ``device``."""
     dev = resolve_device(device)
     if path and os.path.exists(os.path.join(path, "model.pt")):
-        raise NotImplementedError("loading the trained merger (model.pt) is "
-                                  "not ported yet")
+        from .convert import convert_merger_state_dict
+        from .convert_jax import merger_from_jax_params
+
+        sd = torch.load(os.path.join(path, "model.pt"), map_location="cpu",
+                        weights_only=False)
+        return merger_from_jax_params(convert_merger_state_dict(sd), dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return LearnedMerger(init_merger(gen, device=dev))

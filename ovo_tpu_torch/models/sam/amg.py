@@ -1,16 +1,21 @@
 """Automatic mask generation: grid-prompted segmentation of a keyframe on
-the device (port of ``ovo_tpu/models/sam/amg.py``, the SAM2 path).
+the device (port of ``ovo_tpu/models/sam/amg.py``), for both SAM families.
 
   encode -> decode all P grid points in one batch -> multimask candidates
   (3P) -> iou / stability gates -> top-C by predicted IoU -> greedy box NMS
   -> OVO's mask NMS -> top-M by stability -> bilinear upsample to the image
   -> stability-ordered seg map.
 
+SAM1 segments the padded square: its grid points are scaled into the
+image's top-left box, its scores read logits with the pad suppressed, and
+its upsample reads the raw logits through the composed interpolate -> crop
+-> interpolate matrices.
+
 Every stage is fixed-shape tensor code: no host synchronization between the
 image upload and the returned (seg, binary maps, valid) tensors. The
 greedy box NMS walks its candidates as device-side steps. The small-region
-host pass (numpy + scipy) runs only when ``min_area`` asks for it, which
-the SAM2 defaults do not.
+host pass (numpy + scipy) runs only when ``min_area`` asks for it, as
+SAM1's defaults do (``min_mask_region_area`` 100) and SAM2's do not.
 """
 from __future__ import annotations
 
@@ -43,23 +48,41 @@ def _bilinear_matrix(src: int, dst: int) -> np.ndarray:
 _device_mats: Dict[tuple, torch.Tensor] = {}
 
 
-def _bilinear_on(src: int, dst: int, device: torch.device) -> torch.Tensor:
-    key = (src, dst, str(device))
+def _on_device(make, args: tuple, device: torch.device) -> torch.Tensor:
+    """``make(*args)``'s matrix on ``device``, made and uploaded once."""
+    key = (make.__name__, *args, str(device))
     m = _device_mats.get(key)
     if m is None:
-        m = _device_mats[key] = to_device(_bilinear_matrix(src, dst), device)
+        m = _device_mats[key] = to_device(make(*args), device)
     return m
 
 
-def upsample_bilinear_matmul(x: torch.Tensor, out_hw: Tuple[int, int]
+def upsample_bilinear_matmul(x: torch.Tensor, out_hw: Tuple[int, int],
+                             mats: Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor]] = None
                              ) -> torch.Tensor:
     """(M, h, w) -> (M, H, W) bilinear via separable f32 matmuls (TF32 off:
-    mask boundaries sit where the interpolated logits cross 0)."""
+    mask boundaries sit where the interpolated logits cross 0). ``mats``:
+    the per-axis (h, H), (w, W) matrices instead (SAM1's crop-composed
+    ones)."""
     h, w = x.shape[-2:]
-    mh = _bilinear_on(h, out_hw[0], x.device)
-    mw = _bilinear_on(w, out_hw[1], x.device)
+    if mats is None:
+        mats = (_on_device(_bilinear_matrix, (h, out_hw[0]), x.device),
+                _on_device(_bilinear_matrix, (w, out_hw[1]), x.device))
+    mh, mw = mats
     y = torch.matmul(x.float().transpose(-1, -2), mh).transpose(-1, -2)
     return torch.matmul(y, mw)
+
+
+def _sam1_upsample_matrix(src: int, full: int, crop: int, dst: int
+                          ) -> np.ndarray:
+    """(src, dst) matrix of SAM1's mask upsampling along one axis: logits
+    (src) -> the model's input size (full), cropped to the image's extent
+    (crop), -> the image's size (dst); the official postprocess_masks
+    chain as one matmul."""
+    m1 = _bilinear_matrix(src, full)[:, :crop]         # (src, crop)
+    m2 = _bilinear_matrix(crop, dst)                   # (crop, dst)
+    return m1 @ m2
 
 
 def grid_points(points_per_side: int) -> np.ndarray:
@@ -243,8 +266,9 @@ def _amg_program_batch(model: SAMModel, images: torch.Tensor,
     :func:`_amg_program`'s; the four outputs stacked on a leading B."""
     embeds, high_res = model.encode_images(torch.cat(
         [_preprocess(model, img) for img in images]))
-    outs = [_amg_masks(model, embeds[b], [h[b] for h in high_res], points,
-                       **kw) for b in range(images.shape[0])]
+    outs = [_amg_masks(model, embeds[b],
+                       None if high_res is None else [h[b] for h in high_res],
+                       points, **kw) for b in range(images.shape[0])]
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
@@ -259,7 +283,14 @@ def _amg_masks(model: SAMModel, image_embed: torch.Tensor, high_res,
                stability_offset, mask_threshold, box_nms_thresh, nms_iou_th,
                nms_score_th, nms_inner_th, max_masks, candidates, min_area,
                gate_prompts=None, out_hw: Tuple[int, int]):
-    """The masks of one encoded image (the decoder onwards)."""
+    """The masks of one encoded image (the decoder onwards); ``out_hw`` is
+    the original image's size."""
+    sam1 = model.cfg.family == "sam1"
+    if sam1:
+        # the grid lives in the image's [0, 1] box, the top-left (nh, nw)
+        # of the padded square
+        sx, sy = model.point_scale(*out_hw)
+        points = torch.stack([points[:, 0] * sx, points[:, 1] * sy], dim=1)
     # multimask outputs only (channels 1:4); the gate keeps the top prompts
     # by predicted IoU for the upscale tail
     out = model.decode_grid(image_embed, high_res, points,
@@ -269,7 +300,21 @@ def _amg_masks(model: SAMModel, image_embed: torch.Tensor, high_res,
     P, C, Hm, Wm = logits.shape
     logits = logits.reshape(P * C, Hm, Wm)
     iou = out["iou"].reshape(P * C)
-    area_gate = min_area_cells(min_area, Hm * Wm, out_hw)
+    logits_raw = logits          # the upsample reads the unsuppressed ones
+    if sam1:
+        # the pad is suppressed for scoring only (the official AMG crops
+        # before it scores); the upsample's composed matrices exclude the
+        # pad and interpolate the real logits at the crop's edge
+        nh, nw = model.resized_hw(*out_hw)
+        s = model.cfg.image_size
+        vh, vw = -(-nh * Hm // s), -(-nw * Wm // s)     # ceil at logit res
+        dev = logits.device
+        ok = ((torch.arange(Hm, device=dev) < vh)[:, None]
+              & (torch.arange(Wm, device=dev) < vw)[None, :])
+        logits = logits.masked_fill(~ok, mask_threshold - 1e4)
+        area_gate = min_area_cells(min_area, vh * vw, out_hw)
+    else:
+        area_gate = min_area_cells(min_area, Hm * Wm, out_hw)
 
     stab = stability_score(logits, mask_threshold, stability_offset)
     masks = logits > mask_threshold
@@ -297,14 +342,20 @@ def _amg_masks(model: SAMModel, image_embed: torch.Tensor, high_res,
                           stable=True)[:max_masks]
     final_valid = valid_c[m_sel]
     final_stab = torch.where(final_valid, stab_c[m_sel], neg[m_sel])
-    lg_up = upsample_bilinear_matmul(logits[sel][m_sel], out_hw)
+    mats = (tuple(_on_device(_sam1_upsample_matrix,
+                             (n, model.cfg.image_size, crop, dst),
+                             logits.device)
+                  for n, crop, dst in ((Hm, nh, out_hw[0]),
+                                       (Wm, nw, out_hw[1])))
+            if sam1 else None)
+    lg_up = upsample_bilinear_matmul(logits_raw[sel][m_sel], out_hw, mats)
     bmaps = (lg_up > mask_threshold) & final_valid[:, None, None]
     seg = masks_to_seg_map(bmaps, final_stab, final_valid)
     return seg, bmaps, final_valid, final_stab
 
 
 class AutomaticMaskSource:
-    """Mask source (``get_masks``) backed by the SAM2 model on its device."""
+    """Mask source (``get_masks``) backed by a SAM model on its device."""
 
     def __init__(self, model: SAMModel, points_per_side: int = 16,
                  pred_iou_thresh: float = 0.8,
@@ -393,40 +444,49 @@ class AutomaticMaskSource:
 
 def build_sam_mask_source(sam_cfg: Dict[str, Any], max_masks: int = 96,
                           device="cuda") -> AutomaticMaskSource:
-    """Factory from the reference's sam config section. A missing
-    checkpoint gives seeded random weights with a warning; loading a present
-    one waits for the port of ``convert_sam``."""
+    """Factory from the reference's sam config section: the checkpoint of
+    the encoder's card under ``sam_ckpt_path`` when it exists
+    (``convert_sam.load_sam_checkpoint``), else seeded random weights with
+    a warning. ``sam_version: ""`` or a ``vit_*`` encoder is SAM1, with its
+    defaults (stability 0.85, ``min_mask_region_area`` 100); SAM2's are
+    0.95 and 0."""
     import os
 
     encoder = sam_cfg.get("sam_encoder", "hiera_l")
     version = sam_cfg.get("sam_version", "2.1")
-    if version == "" or encoder.startswith("vit"):
-        raise NotImplementedError(
-            f"SAM1 / ViT-det ({encoder!r}) is not ported yet")
-    cards = {"hiera_l": "hiera_large.pt", "hiera_t": "hiera_tiny.pt",
-             "hiera_s": "hiera_small.pt", "hiera_b+": "hiera_base_plus.pt",
-             "hiera_test": "hiera_test.pt"}
+    sam1 = version == "" or encoder.startswith("vit")
+    # the reference's model cards: sam_vit_h_4b8939.pth etc. (SAM1, empty
+    # sam_version), sam2.1_hiera_large.pt etc.
+    cards = ({"vit_b": "vit_b_01ec64.pth", "vit_l": "vit_l_0b3195.pth",
+              "vit_h": "vit_h_4b8939.pth", "vit_test": "vit_test.pth"}
+             if sam1 else
+             {"hiera_l": "hiera_large.pt", "hiera_t": "hiera_tiny.pt",
+              "hiera_s": "hiera_small.pt", "hiera_b+": "hiera_base_plus.pt",
+              "hiera_test": "hiera_test.pt"})
     ckpt_dir = sam_cfg.get("sam_ckpt_path", "")
     ckpt = os.path.join(ckpt_dir, f"sam{version}_"
                         + cards.get(encoder, f"{encoder}.pt"))
+    dev = resolve_device(device)
     if os.path.exists(ckpt):
-        raise NotImplementedError(
-            f"loading the SAM checkpoint {ckpt} is not ported yet")
-    if ckpt_dir:
-        print(f"[ovo_tpu_torch] WARNING: SAM checkpoint {ckpt} not found; "
-              f"using random weights for {encoder}")
-    model = SAMModel.random_init(encoder,
-                                 image_size=sam_cfg.get("image_size", 1024),
-                                 device=resolve_device(device))
+        from ..convert_sam import load_sam_checkpoint
+
+        model = load_sam_checkpoint(encoder, ckpt, device=dev)
+    else:
+        if ckpt_dir:
+            print(f"[ovo_tpu_torch] WARNING: SAM checkpoint {ckpt} not "
+                  f"found; using random weights for {encoder}")
+        model = SAMModel.random_init(
+            encoder, image_size=sam_cfg.get("image_size", 1024), device=dev)
     return AutomaticMaskSource(
         model,
         points_per_side=sam_cfg.get("points_per_side", 16),
         pred_iou_thresh=sam_cfg.get("pred_iou_th", 0.8),
-        stability_thresh=sam_cfg.get("stability_score_th", 0.95),
+        stability_thresh=sam_cfg.get("stability_score_th",
+                                     0.85 if sam1 else 0.95),
         nms_iou_th=sam_cfg.get("nms_iou_th", 0.8),
         nms_score_th=sam_cfg.get("nms_score_th", 0.7),
         nms_inner_th=sam_cfg.get("nms_inner_th", 0.5),
         max_masks=max_masks,
-        min_area=sam_cfg.get("min_mask_region_area", 0),
+        min_area=sam_cfg.get("min_mask_region_area", 100 if sam1 else 0),
         min_area_mode=sam_cfg.get("min_area_mode", "connected"),
         gate_prompts=sam_cfg.get("gate_prompts", 128))

@@ -82,10 +82,12 @@ def _init_mlp3(init: Init, d: int, d_out: int) -> Params:
 
 
 def init_mask_decoder(init: Init, d: int = 256, depth: int = 2,
-                      mlp_dim: int = 2048) -> Params:
-    """The SAM2 decoder: object-score token and head, high-res skip convs."""
+                      mlp_dim: int = 2048, high_res: bool = True,
+                      obj_token: bool = True) -> Params:
+    """The SAM2 decoder (object-score token and head, high-res skip convs);
+    ``high_res=False, obj_token=False``: the SAM1 decoder, without them."""
     up1, up2 = d // 4, d // 8
-    return {
+    p = {
         "iou_token": init.normal((d,), 0.02),
         "mask_tokens": init.normal((NUM_MASK_TOKENS, d), 0.02),
         "layers": [_init_twoway_layer(init, d, mlp_dim)
@@ -100,13 +102,16 @@ def init_mask_decoder(init: Init, d: int = 256, depth: int = 2,
         "hyper_mlps": [_init_mlp3(init, d, up2)
                        for _ in range(NUM_MASK_TOKENS)],
         "iou_head": _init_mlp3(init, d, NUM_MASK_TOKENS),
-        "obj_score_token": init.normal((d,), 0.02),
-        "obj_head": _init_mlp3(init, d, 1),
-        "conv_s0": {"w": init.normal((1, 1, d, up2), 0.05),
-                    "b": init.zeros(up2)},
-        "conv_s1": {"w": init.normal((1, 1, d, up1), 0.05),
-                    "b": init.zeros(up1)},
     }
+    if obj_token:
+        p["obj_score_token"] = init.normal((d,), 0.02)
+        p["obj_head"] = _init_mlp3(init, d, 1)
+    if high_res:
+        p["conv_s0"] = {"w": init.normal((1, 1, d, up2), 0.05),
+                        "b": init.zeros(up2)}
+        p["conv_s1"] = {"w": init.normal((1, 1, d, up1), 0.05),
+                        "b": init.zeros(up1)}
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +315,9 @@ def decode_masks(params: Params, image_embed: torch.Tensor,
     mask_tail: ``"unfused"`` (the reference's PyTorch ops) or ``"fused"``
     (kernel B13, bf16 decoders with high-res features only).
 
+    A decoder without ``obj_score_token`` (SAM1) runs 7 tokens (IoU, 4
+    mask tokens, the point, the pad point) and gives ``obj_score`` zeros.
+
     Returns {"masks": (B', C, 4H, 4W) f32 logits, "iou": (B', C),
     "obj_score": (B',), "prompt_sel": (B',)}."""
     B = sparse_prompts.shape[0]
@@ -323,9 +331,12 @@ def decode_masks(params: Params, image_embed: torch.Tensor,
         raise ValueError(f"mask_tail='fused' takes a bf16 decoder with "
                          f"high-res features; got {cdtype}, high_res_feats "
                          f"{'absent' if high_res_feats is None else 'set'}")
-    prefix = torch.cat([params["obj_score_token"][None],
-                        params["iou_token"][None], params["mask_tokens"]],
-                       dim=0).to(cdtype)                     # (6, d)
+    # the SAM1 decoder has no object-score token: IoU + 4 mask tokens
+    has_obj = "obj_score_token" in params
+    head = [params["obj_score_token"][None]] if has_obj else []
+    prefix = torch.cat(head + [params["iou_token"][None],
+                               params["mask_tokens"]],
+                       dim=0).to(cdtype)                     # (5 or 6, d)
     tokens = torch.cat([prefix.expand(B, -1, d), sparse_prompts.to(cdtype)],
                        dim=1)
     # the image side enters batch-1: the first layer reads it once
@@ -334,9 +345,10 @@ def decode_masks(params: Params, image_embed: torch.Tensor,
     queries, keys = two_way_transformer(params, tokens, src, pe, heads,
                                         route=route)
 
-    obj_token = queries[:, 0]
-    iou_token = queries[:, 1]
-    mask_tokens = queries[:, 2:2 + NUM_MASK_TOKENS]
+    off = 1 if has_obj else 0
+    obj_token = queries[:, 0] if has_obj else None
+    iou_token = queries[:, off]
+    mask_tokens = queries[:, off + 1:off + 1 + NUM_MASK_TOKENS]
     chans = (tuple(range(NUM_MASK_TOKENS)) if mask_channels is None
              else tuple(mask_channels))
     iou_head = _mlp3(params["iou_head"], iou_token, sigmoid_out=True)
@@ -349,7 +361,8 @@ def decode_masks(params: Params, image_embed: torch.Tensor,
                                 [:top_prompts]).values
         keys = keys[prompt_sel]
         mask_tokens = mask_tokens[prompt_sel]
-        obj_token = obj_token[prompt_sel]
+        if obj_token is not None:
+            obj_token = obj_token[prompt_sel]
         iou_all = iou_all[prompt_sel]
         B = top_prompts
 
@@ -382,6 +395,12 @@ def decode_masks(params: Params, image_embed: torch.Tensor,
         # f32 products and sums, as the reference's preferred_element_type:
         # the logits meet thresholds at 0 and +-1
         masks = torch.einsum("bkc,bhwc->bkhw", hyper.float(), up.float())
-    obj = _mlp3(params["obj_head"], obj_token)[:, 0]
+    if obj_token is None:
+        obj = torch.zeros(B, device=masks.device)    # SAM1: no object score
+    else:
+        oh = params["obj_head"]
+        # a one-linear head: the legacy layout convert_sam falls back to
+        obj = (_mlp3(oh, obj_token) if "l0" in oh
+               else lin(oh, obj_token))[:, 0]
     return {"masks": masks, "iou": iou_all, "obj_score": obj,
             "prompt_sel": prompt_sel}

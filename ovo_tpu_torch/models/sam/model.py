@@ -1,9 +1,9 @@
-"""SAM2 segmentation model: Hiera trunk + FPN neck + prompt encoder + mask
+"""SAM models: the SAM2 family (Hiera trunk + FPN neck) and the SAM1
+family (ViT-det trunk with its own neck, the decoder without object-score
+token and high-res skips), each with the prompt encoder and the mask
 decoder, assembled for batched grid-prompted inference (port of
-``ovo_tpu/models/sam/model.py``, the ``sam2`` family).
-
-SAM1 (ViT-det encoders, ``encoder.startswith("vit")``) is not ported yet and
-raises ``NotImplementedError``.
+``ovo_tpu/models/sam/model.py``). ``encoder`` names the family: ``vit_*``
+cards are SAM1 (the reference's ``sam_version: ""``), ``hiera_*`` SAM2.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ... import resolve_device
 from ...ops.resize import resize_channels_last
@@ -19,6 +20,7 @@ from .hiera import HIERA_CONFIGS, HieraConfig, hiera_forward, init_hiera
 from .neck import conv1x1, init_neck, neck_forward
 from .params import Init, ParamTree
 from .prompt import encode_points, init_prompt_encoder, pe_grid
+from .vitdet import VITDET_CONFIGS, ViTDetConfig, init_vitdet, vitdet_forward
 
 SAM_MEAN = (0.485, 0.456, 0.406)
 SAM_STD = (0.229, 0.224, 0.225)
@@ -41,23 +43,28 @@ class SAMConfig:
         return HIERA_CONFIGS[self.encoder]
 
     @property
+    def vitdet(self) -> ViTDetConfig:
+        return VITDET_CONFIGS[self.encoder]
+
+    @property
     def dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.compute_dtype == "bfloat16"
                 else torch.float32)
 
 
-def _sam2(cfg: SAMConfig) -> SAMConfig:
-    if cfg.family != "sam2":
-        raise NotImplementedError(
-            f"SAM1 / ViT-det encoder {cfg.encoder!r} is not ported yet")
-    return cfg
-
-
 def init_sam(cfg: SAMConfig, gen: Optional[torch.Generator],
              device) -> Dict[str, Any]:
-    """The SAM2 param tree of the JAX package's ``SAMModel.random_init``:
-    random leaves from ``gen``, or zeros without it."""
+    """The param tree of the JAX package's ``SAMModel.random_init``:
+    random leaves from ``gen``, or zeros without it. SAM1: the ViT-det
+    trunk carries its own neck, and the decoder has neither the
+    object-score token nor the high-res skip convolutions."""
     init = Init(gen, device)
+    if cfg.family == "sam1":
+        return {"trunk": init_vitdet(init, cfg.vitdet),
+                "prompt": init_prompt_encoder(init, cfg.d_model),
+                "decoder": init_mask_decoder(init, cfg.d_model,
+                                             high_res=False,
+                                             obj_token=False)}
     hcfg = cfg.hiera
     channels = tuple(int(hcfg.embed_dim * hcfg.dim_mul ** i)
                      for i in range(4))
@@ -69,7 +76,7 @@ def init_sam(cfg: SAMConfig, gen: Optional[torch.Generator],
 
 class SAMModel:
     def __init__(self, cfg: SAMConfig, params, device="cuda"):
-        self.cfg = _sam2(cfg)
+        self.cfg = cfg
         self.device = resolve_device(device)
         if not isinstance(params, ParamTree):
             params = ParamTree(params, cfg.dtype)
@@ -85,8 +92,8 @@ class SAMModel:
                     compute_dtype: str = "bfloat16") -> "SAMModel":
         """Random weights from a seeded ``torch.Generator`` on ``device``
         (the reference's shapes and stds; numbers differ from JAX's PRNG)."""
-        cfg = _sam2(SAMConfig(encoder=encoder, image_size=image_size,
-                              compute_dtype=compute_dtype))
+        cfg = SAMConfig(encoder=encoder, image_size=image_size,
+                        compute_dtype=compute_dtype)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return cls(cfg, init_sam(cfg, gen, dev), dev)
@@ -95,31 +102,61 @@ class SAMModel:
     def from_jax_params(cls, encoder: str, image_size: int,
                         params: Dict[str, Any], device="cuda",
                         compute_dtype: str = "bfloat16") -> "SAMModel":
-        """Model from the JAX package's ``SAMModel.params`` (numpy leaves),
-        filled by path into the port's tree."""
+        """Model from the JAX package's ``SAMModel.params`` or a converted
+        checkpoint (``models/convert_sam.py``), numpy leaves, filled by path
+        into the port's tree."""
         from ..convert_jax import load_jax_params
 
-        cfg = _sam2(SAMConfig(encoder=encoder, image_size=image_size,
-                              compute_dtype=compute_dtype))
+        cfg = SAMConfig(encoder=encoder, image_size=image_size,
+                        compute_dtype=compute_dtype)
         dev = resolve_device(device)
         tree = ParamTree(init_sam(cfg, None, dev), cfg.dtype)
         return cls(cfg, load_jax_params(tree, params, dev), dev)
 
     # ------------------------------------------------------------------
-    def preprocess(self, image: torch.Tensor) -> torch.Tensor:
-        """(H, W, 3) float [0, 1] -> (1, S, S, 3) normalized, compute dtype
-        (square resize, the SAM2 predictor's convention)."""
+    def resized_hw(self, h: int, w: int) -> Tuple[int, int]:
+        """SAM1's ResizeLongestSide target (get_preprocess_shape: int(dim *
+        S / max + 0.5))."""
+        scale = self.cfg.image_size / max(h, w)
+        return int(h * scale + 0.5), int(w * scale + 0.5)
+
+    def point_scale(self, h: int, w: int) -> Tuple[float, float]:
+        """(sx, sy) taking [0, 1] original-image points into the model's
+        input square: SAM2 (square resize) the identity; SAM1 the top-left
+        (nh, nw) the resized image fills."""
+        if self.cfg.family != "sam1":
+            return (1.0, 1.0)
+        nh, nw = self.resized_hw(h, w)
         s = self.cfg.image_size
+        return (nw / s, nh / s)
+
+    def preprocess(self, image: torch.Tensor) -> torch.Tensor:
+        """(H, W, 3) float [0, 1] -> (1, S, S, 3) normalized, compute
+        dtype. SAM2: square resize (the SAM2 predictor's convention). SAM1:
+        the longest side resized to S, aspect kept, then zero padding at
+        the bottom and the right (zero is the normalized mean)."""
+        s = self.cfg.image_size
+        if self.cfg.family == "sam1":
+            nh, nw = self.resized_hw(image.shape[0], image.shape[1])
+            img = resize_channels_last(image, (nh, nw))
+            img = F.pad((img - self._mean) / self._std,
+                        (0, 0, 0, s - nw, 0, s - nh))
+            return img[None].to(self.cfg.dtype)
         img = resize_channels_last(image, (s, s))
         return ((img - self._mean) / self._std)[None].to(self.cfg.dtype)
 
     def encode_images(self, images: torch.Tensor, *,
                       window_attn: str = "heads"
-                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                      ) -> Tuple[torch.Tensor,
+                                 Optional[List[torch.Tensor]]]:
         """(B, S, S, 3) preprocessed images -> (image_embeds (B, H16, W16,
         d), high_res [(B, H4, W4, 32), (B, H8, W8, 64)]): the trunk and the
-        neck run once over the batch; ``window_attn`` picks the trunk's
-        window attention (``hiera.hiera_forward``)."""
+        neck run once over the batch; ``window_attn`` picks the Hiera
+        trunk's window attention (``hiera.hiera_forward``). SAM1 (ViT-det)
+        has no high-res features: (embeds, None)."""
+        if self.cfg.family == "sam1":
+            return vitdet_forward(self.params["trunk"], self.cfg.vitdet,
+                                  images), None
         feats = hiera_forward(self.params["trunk"], self.cfg.hiera, images,
                               window_attn=window_attn)
         fpn = neck_forward(self.params["neck"], feats)
@@ -129,11 +166,13 @@ class SAMModel:
         return s16, [conv1x1(dec["conv_s0"], s4), conv1x1(dec["conv_s1"], s8)]
 
     def encode_image(self, image: torch.Tensor, *, window_attn: str = "heads"
-                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                     ) -> Tuple[torch.Tensor, Optional[List[torch.Tensor]]]:
         """(1, S, S, 3) -> (image_embed (H16, W16, d), high_res [(H4, W4,
-        32), (H8, W8, 64)]) for the decoder (:meth:`encode_images`)."""
+        32), (H8, W8, 64)], or None for SAM1) for the decoder
+        (:meth:`encode_images`)."""
         embeds, high_res = self.encode_images(image, window_attn=window_attn)
-        return embeds[0], [h[0] for h in high_res]
+        return embeds[0], (None if high_res is None
+                           else [h[0] for h in high_res])
 
     def decode_grid(self, image_embed: torch.Tensor,
                     high_res: List[torch.Tensor], points01: torch.Tensor,

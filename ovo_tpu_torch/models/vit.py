@@ -77,13 +77,14 @@ class PatchEmbed(nn.Module):
 class AttnPool(nn.Module):
     """PE probe attention-pooling head; with ``mlp_hidden`` also the SigLIP
     MAP head's residual MLP (``ln2`` + ``mlp``, timm AttentionPoolLatent),
-    present only when the converted params carry it."""
+    present only when the converted params carry it. ``ln=False``: no norm
+    on the keys' input (timm's MAP head, as converted)."""
 
     def __init__(self, width: int, dtype, device=None,
-                 mlp_hidden: Optional[int] = None):
+                 mlp_hidden: Optional[int] = None, ln: bool = True):
         super().__init__()
         self.probe = _param((1, width), torch.float32, device)
-        self.ln = L.LayerNorm(width, device=device)
+        self.ln = L.LayerNorm(width, device=device) if ln else None
         self.q = L.Linear(width, width, dtype=dtype, device=device)
         self.k = L.Linear(width, width, dtype=dtype, device=device)
         self.v = L.Linear(width, width, dtype=dtype, device=device)
@@ -98,10 +99,11 @@ class AttnPool(nn.Module):
 class VisionTransformer(nn.Module):
     """Parameters named as the JAX ``params["visual"]`` tree.
     ``map_mlp_hidden``: the hidden width of the SigLIP MAP head's MLP when
-    the converted params carry one."""
+    the converted params carry one; ``pool_ln=False``: a pooling head
+    without its keys' norm (a converted timm MAP head)."""
 
     def __init__(self, cfg: ViTConfig, device=None,
-                 map_mlp_hidden: Optional[int] = None):
+                 map_mlp_hidden: Optional[int] = None, pool_ln: bool = True):
         super().__init__()
         self.cfg = cfg
         dt = cfg.dtype
@@ -117,8 +119,8 @@ class VisionTransformer(nn.Module):
             if cfg.use_cls_token else None
         self.pos = _param((cfg.n_tokens, cfg.width), torch.float32, device) \
             if cfg.use_abs_pos else None
-        self.attn_pool = AttnPool(cfg.width, dt, device, map_mlp_hidden) \
-            if cfg.pool == "attn" else None
+        self.attn_pool = AttnPool(cfg.width, dt, device, map_mlp_hidden,
+                                  pool_ln) if cfg.pool == "attn" else None
 
 
 @torch.no_grad()

@@ -1,12 +1,14 @@
-"""The Hiera patch embed as space-to-depth + one matmul (port of
-``ovo_tpu/ops/patchify.py``'s ``patch_embed_s4``).
+"""The encoders' patch embeds as one matmul each (port of
+``ovo_tpu/ops/patchify.py``).
 
-A 7x7 / stride-4 / pad-3 convolution is a 2x2 / stride-1 convolution over
-4x4-blocked channels after space-to-depth by the stride: the 2x2
-neighborhood is gathered with four unit-stride slices and contracted in one
-matmul against the tap-rearranged, zero-padded kernel. NHWC in, NHWC out,
-HWIO weights; the product accumulates in f32 and is cast back, as the
-reference's ``preferred_element_type=f32``.
+A stride == kernel convolution (the ViT-det's 16x16 / stride 16) takes
+non-overlapping patches: a reshape to (B, Ho, Wo, k * k * Cin) and one
+matmul. A 7x7 / stride-4 / pad-3 convolution (Hiera's) is a 2x2 / stride-1
+convolution over 4x4-blocked channels after space-to-depth by the stride:
+the 2x2 neighborhood is gathered with four unit-stride slices and
+contracted in one matmul against the tap-rearranged, zero-padded kernel.
+NHWC in, NHWC out, HWIO weights; the product accumulates in f32 and is cast
+back, as the reference's ``preferred_element_type=f32``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,25 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+
+def patch_embed_nonoverlap(imgs: torch.Tensor, w: torch.Tensor,
+                           b: Optional[torch.Tensor]) -> torch.Tensor:
+    """imgs (B, H, W, Cin), w (k, k, Cin, C) HWIO with H, W multiples of k
+    -> (B, H/k, W/k, C) in imgs' dtype, the bias added in that dtype."""
+    k = w.shape[0]
+    B, H, W, Cin = imgs.shape
+    if w.shape[1] != k or H % k or W % k:
+        raise ValueError(f"patch_embed_nonoverlap takes a square kernel "
+                         f"dividing H, W; got {tuple(imgs.shape)}, "
+                         f"{tuple(w.shape)}")
+    x = imgs.reshape(B, H // k, k, W // k, k, Cin).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(B, H // k, W // k, k * k * Cin)
+    wf = w.reshape(k * k * Cin, -1).to(imgs.dtype)
+    out = torch.matmul(x.float(), wf.float()).to(imgs.dtype)
+    if b is not None:
+        out = out + b.to(out.dtype)
+    return out
 
 
 def patch_embed_s4(imgs: torch.Tensor, w: torch.Tensor,

@@ -162,11 +162,14 @@ def test_merger_matches_jax(rng):
 
 
 def test_load_merger_random_or_refuses_checkpoint(tmp_path):
+    """No model.pt: seeded random weights. A model.pt is loaded
+    (tests/test_torch_checkpoints.py); an empty one is refused by
+    torch.load."""
     m = tmerger.load_merger(None, device="cpu")
     out = m(torch.nn.functional.normalize(torch.randn(4, 3, 1152), dim=-1))
     assert out.shape == (4, 1152) and torch.isfinite(out).all()
     (tmp_path / "model.pt").write_bytes(b"")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(EOFError):
         tmerger.load_merger(str(tmp_path), device="cpu")
 
 
@@ -231,9 +234,9 @@ def test_factory_builds_every_embed_type(tmp_path):
     tr = build_embedder({"clip": {"embed_type": "TextRegion",
                                   "model_card": "tiny-pe"}}, device="cpu")
     assert isinstance(tr, TextRegionEmbedder)
-    ckpt = tmp_path / "open_clip.bin"
-    ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError):
+    ckpt = tmp_path / "open_clip.bin"   # a present checkpoint is loaded:
+    ckpt.write_bytes(b"")                # an empty one is refused
+    with pytest.raises(EOFError):
         build_embedder({"clip": {"embed_type": "hovsg",
                                  "model_card": "tiny-test",
                                  "ckpt_path": str(ckpt)}}, device="cpu")

@@ -5,7 +5,8 @@ fused_mlp_block), the decoder's other routes' B7 (cross_i2t_proj), B8
 (residual_layer_norm) and B9a / B9b (cross_small_head), and B14
 (layer_norm_rows), B11 (packed_heads_attention) and B13 (fused_mask_tail)
 (limits beside their tests below) against their plain PyTorch versions, on
-a CUDA card. These tests skip without one (the kernels have no
+a CUDA card; B2, B3 and B4 also at SAM1's 7 decoder tokens, and the SAM1
+AMG program card against CPU. These tests skip without one (the kernels have no
 CPU mode). The file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
 
@@ -346,6 +347,85 @@ def test_cross_i2t_tail_kernel_matches_plain(cuda_device, dtype, tol):
     # keys whose pointer is not 16-byte aligned are taken
     got = A.cross_i2t_tail_from_keys(_misaligned(args[0]), *args[1:])
     assert _err(got, A.cross_i2t_tail_from_keys_plain(*args)) <= tol
+
+
+# ---------------------------------------------------------------------------
+# SAM1's decoder runs 7 tokens (IoU, 4 mask tokens, the point, the pad
+# point). B3's fixed-width instance takes them (and fewer) in the row
+# layout of 8 tokens, the tail rows unread and unstored. B4 rounds 7 up to 8 token
+# columns, the eighth masked. B2 takes the token self-attention's
+# head-split views (lq = lk = 7). The limits are those of the 8-token tests
+# above; the SAM1 AMG program on vit_test, card against CPU, is
+# chip_smoke.py's reference_sam1.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_cross_t2i_kernel_at_sam1_tokens(cuda_device, dtype, tol):
+    from ovo_tpu_torch.ops import cuda_build
+
+    rng = np.random.default_rng(26)
+    # SAM1's 7 tokens, and 3 (a row tile of two heads' 3 rows and 5 unused)
+    for Bk, T in ((1, 7), (6, 7), (6, 3)):
+        x = _cross_args(rng, cuda_device, dtype, 6, Bk, T, 4096)
+        args = (x["q"], x["keys"], x["wk"], x["wv"], x["pe"], x["bv"], 8)
+        ref = A.cross_t2i_from_keys_plain(*args)
+        cuda_build.reset_launch_counts()
+        got = A.cross_t2i_from_keys(*args)
+        assert cuda_build.launch_counts()["cross_t2i"] == 1
+        assert tuple(got.shape) == tuple(ref.shape) == (6, T, 128)
+        assert _err(got, ref) <= tol
+        assert _shares_ok(got, ref, dtype, B3_SHARE)
+        if dtype == torch.bfloat16:
+            # the masked tail rows are the zero rows of an 8-token call
+            q8 = torch.nn.functional.pad(x["q"], (0, 0, 0, 8 - T))
+            full = A.cross_t2i_from_keys(q8, *args[1:])
+            assert torch.equal(full[:, :T], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 6e-2)])
+def test_cross_i2t_tail_kernel_at_sam1_tokens(cuda_device, dtype, tol):
+    rng = np.random.default_rng(27)
+    for Bt, Bk, t_len in ((6, 1, None), (6, 6, None), (6, 6, 5)):
+        x = _cross_args(rng, cuda_device, dtype, Bt, Bk, 7, 4096)
+        args = (x["keys"], x["wk"], x["pe"], x["q"],
+                x["q"].flip(1).contiguous(), x["wout"], x["bout"], x["g"],
+                x["b"], 8)
+        got = A.cross_i2t_tail_from_keys(*args, t_len=t_len)
+        ref = A.cross_i2t_tail_from_keys_plain(*args, t_len=t_len)
+        assert _err(got, ref) <= tol
+        assert _shares_ok(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_windowed_kernel_at_sam1_tokens(cuda_device, dtype, tol):
+    """The decoder's token self-attention: q, k, v each a (B, 7, 256)
+    projection, split into 8 heads of 32 (strided views)."""
+    rng = np.random.default_rng(28)
+    assert A.attention_route(7, 7, 32) == "windowed"
+    q, k, v = (_dev(rng.standard_normal((64, 7, 256)), cuda_device,
+                    dtype).reshape(64, 7, 8, 32).transpose(1, 2)
+               for _ in range(3))
+    ref = A.windowed_attention_plain(q, k, v)
+    for got in (A.dot_product_attention(q, k, v),
+                A.windowed_fused_attention(q, k, v)):
+        assert _err(got, ref) <= tol
+        assert _shares_ok(got, ref, dtype)
+
+
+@pytest.mark.cuda
+def test_sam1_amg_program_card_matches_cpu(cuda_device):
+    import chip_smoke
+
+    r = chip_smoke.run_reference_amg(cuda_device, "vit_test", min_area=100)
+    assert r["valid_masks"] >= 1
+    assert r["launches"] == {"windowed_attention": 2, "cross_t2i": 3,
+                             "cross_i2t_tail": 2}
 
 
 # ---------------------------------------------------------------------------

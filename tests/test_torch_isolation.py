@@ -5,7 +5,8 @@ and no module-level ``yaml`` or ``cv2`` import; it imports and runs -- the
 pipeline with a text query, the crop embedders, the live SAM2 mask source
 and the CLI's ``--run --segment --eval`` on a PNG scene -- with jax, yaml
 and cv2 blocked; its entry points refuse to fall back to the CPU on their
-own."""
+own. The subprocess also builds a SAM1 mask source and loads a SAM1, an
+open_clip and a merger checkpoint."""
 import ast
 import os
 import subprocess
@@ -46,7 +47,7 @@ def test_no_jax_or_reference_package_imports():
             "ovo_tpu_torch/ops/resize.py"} <= names
     assert {f"ovo_tpu_torch/models/{m}.py" for m in (
         "clip", "text", "tokenizers", "merger", "textregion",
-        "convert_jax")} <= names
+        "convert_jax", "convert", "convert_sam", "sam/vitdet")} <= names
     assert {"ovo_tpu_torch/run_eval.py", "ovo_tpu_torch/config.py",
             "ovo_tpu_torch/ops/fused_block.py",
             "ovo_tpu_torch/utils/yaml_subset.py",
@@ -136,6 +137,39 @@ src = build_mask_source({{"sam": {{"precomputed": False,
                         "capacity": {{"n_masks": 16}}}}, device="cpu")
 seg, bmaps, valid = src.get_masks(SyntheticWallDataset(n_frames=1)[0][1], 0)
 assert bmaps.shape[0] == 16 and bool(valid.any())
+# checkpoints: a SAM1 sam_vit_test.pth, a tiny open_clip checkpoint and a
+# merger model.pt, laid out under the official keys and loaded
+import tempfile
+import torch
+import chip_smoke
+from ovo_tpu_torch.models.sam.model import SAMModel
+ck = Path(tempfile.mkdtemp())
+vit = SAMModel.random_init("vit_test", 256, device="cpu")
+torch.save({{"model": chip_smoke.official_state_dict("sam1", vit.params)}},
+           ck / "sam_vit_test.pth")
+src = build_mask_source({{"sam": {{"precomputed": False,
+                                 "sam_encoder": "vit_test", "sam_version": "",
+                                 "sam_ckpt_path": str(ck), "pred_iou_th": 0.0,
+                                 "stability_score_th": 0.0,
+                                 "nms_score_th": 0.0, "points_per_side": 4}},
+                        "capacity": {{"n_masks": 16}}}}, device="cpu")
+assert src.model.cfg.family == "sam1" and src.min_area == 100
+seg, bmaps, valid = src.get_masks(frame, 0)
+assert bmaps.shape == (16,) + tuple(seg.shape)
+tiny = CLIPModel.random_init("tiny-test", device="cpu")
+torch.save(chip_smoke.official_state_dict("clip", {{
+    **chip_smoke.flat_params(tiny.visual, "visual."),
+    **chip_smoke.flat_params(tiny.text, "text.")}}), ck / "clip.bin")
+crop = build_embedder({{"clip": {{"embed_type": "vanilla",
+                                "model_card": "tiny-test", "mask_res": 48,
+                                "ckpt_path": str(ck / "clip.bin")}}}},
+                      device="cpu")
+assert torch.equal(crop.model.visual.proj, tiny.visual.proj)
+assert crop.embed_masks(frame, maps, ok).shape == (16, 32)
+from ovo_tpu_torch.models.merger import init_merger, load_merger
+torch.save(chip_smoke.official_state_dict("merger", init_merger(
+    torch.Generator().manual_seed(1), d_model=32, depth=1)), ck / "model.pt")
+assert len(load_merger(str(ck), device="cpu").params.blocks) == 1
 # the CLI on a PNG scene (tinyroom3's config: hiera_test, tiny-test)
 import os
 from replica_png_scene import write_replica_scene

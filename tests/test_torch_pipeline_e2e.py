@@ -230,12 +230,19 @@ def test_factory_builds_textregion_and_rejects_unported(tmp_path):
     crop = build_embedder({"clip": {"embed_type": "vanilla",
                                     "model_card": "tiny-test"}}, device="cpu")
     assert isinstance(crop, CropCLIPEmbedder) and crop.clip_dim == 32
-    ckpt = tmp_path / "open_clip_model.safetensors"      # converter: A9
+    # a present checkpoint is loaded (tests/test_torch_checkpoints.py); an
+    # empty one is refused by torch.load, as the reference refuses it
+    from ovo_tpu.models.clip import build_clip_embedder as jax_build
+
+    ckpt = tmp_path / "open_clip_model.safetensors"
     ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError):
-        build_embedder({"clip": {"embed_type": "vanilla",
-                                 "model_card": "tiny-test",
-                                 "ckpt_path": str(ckpt)}}, device="cpu")
+    clip_cfg = {"embed_type": "vanilla", "model_card": "tiny-test",
+                "ckpt_path": str(ckpt)}
+    with pytest.raises(Exception) as ours:
+        build_embedder({"clip": clip_cfg}, device="cpu")
+    with pytest.raises(Exception) as ref:
+        jax_build(clip_cfg, "vanilla")
+    assert type(ours.value) is type(ref.value)
     from ovo_tpu_torch.models.sam.amg import AutomaticMaskSource
 
     live = build_mask_source({"sam": {"precomputed": False,
@@ -244,10 +251,12 @@ def test_factory_builds_textregion_and_rejects_unported(tmp_path):
                               "capacity": {"n_masks": 16}}, "s", device="cpu")
     assert isinstance(live, AutomaticMaskSource) and live.max_masks == 16
     assert live.stability_thresh == 0.95 and live.min_area == 0
-    with pytest.raises(NotImplementedError):       # SAM1 / ViT-det (A9)
-        build_mask_source({"sam": {"precomputed": False,
-                                   "sam_encoder": "vit_b",
-                                   "sam_version": ""}}, "s", device="cpu")
+    sam1 = build_mask_source({"sam": {"precomputed": False,   # SAM1
+                                      "sam_encoder": "vit_test",
+                                      "sam_version": "", "image_size": 256},
+                              "capacity": {"n_masks": 16}}, "s", device="cpu")
+    assert sam1.model.cfg.family == "sam1" and sam1.max_masks == 16
+    assert sam1.stability_thresh == 0.85 and sam1.min_area == 100
 
 
 def test_log_mode_records_stats_and_matches_hot_path(tmp_path):

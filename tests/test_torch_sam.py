@@ -171,12 +171,15 @@ def test_decode_masks_match_jax(sam128, top_prompts):
                                    atol=ATOL)
 
 
-def test_sam1_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        SAMModel.random_init("vit_b", 1024, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tamg.build_sam_mask_source({"sam_encoder": "vit_b",
-                                    "sam_version": ""}, device="cpu")
+def test_sam1_builds_from_model_and_factory():
+    """A ViT-det encoder builds the SAM1 family, from the model and from
+    the factory (the tier's parity tests: tests/test_torch_vitdet_sam1.py)."""
+    m = SAMModel.random_init("vit_test", 256, device="cpu")
+    assert m.cfg.family == "sam1" and "neck" not in m.params
+    src = tamg.build_sam_mask_source({"sam_encoder": "vit_test",
+                                      "sam_version": "", "image_size": 256},
+                                     device="cpu")
+    assert src.model.cfg.family == "sam1" and src.min_area == 100
 
 
 # ---------------------------------------------------------------------------
