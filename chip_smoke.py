@@ -97,6 +97,21 @@ non-zero and prints no result):
              segmented keyframe B2 2, B3 3, B4 2 (7 decoder tokens, the
              proj_tail route), no B1 (the trunk runs no kernel); the only
              host syncs in the frame loop are the small-region pass's
+  orb_slice  the amg_slice with configs/ovo.yaml's own backbone, orbslam
+             (configs/slam/orbslam/replica.yaml's gates, read through the
+             port's config chain): the scene's first 30 frames out and back
+             (59 frames, each with its own pose as GT), poses from the
+             native tracker, mapping on its keyframes; the tracker OK on
+             every frame, at least one big change followed by
+             _rebuild_map and update_map, a culled keyframe's block and
+             descriptors dropped, the blocks a disjoint ascending partition
+             of [0, count); per segmented keyframe B1 3, B2 47, B3 3, B4 2,
+             per tower call (one per segmented keyframe) B5 24, B6 1; the
+             only host syncs in the frame loop are the ORB tier's (the
+             count after each keyframe's insert, loop closure's two
+             reads); tracker ms per frame (host), ms per update_map and
+             _rebuild_map, fused and removed instances, the candidate
+             pairs within 1e-5 of a gate
   checkpoint seeded random weights at full width under the official keys,
              torch.save'd and loaded through the factories:
              sam_vit_h_4b8939.pth (build_sam_mask_source), a PE-Core-L14-336
@@ -128,6 +143,15 @@ non-zero and prints no result):
              instance's top-2 margin is above 1e-4, equal metrics when the
              labels are equal; with profile_trace set, each run writes one
              Chrome trace, the card's naming the port's kernels
+  reference_orb  run_eval.main --run --segment --eval on a 64x96 PNG
+             scene of 23 frames out and back (hiera_test, tiny-pe, gates at
+             0) on configs/ovo.yaml's own orbslam backbone (tracker gates
+             for the small scene in the scene's config), on the card and
+             with --device cpu, the same weights: the same keyframes, big
+             changes and culled set, equal count, point and object ids,
+             points within 1e-5, the same active ids and fused pairs,
+             descriptors within cosine 1e-4, labels equal where the top-2
+             margin is above 1e-4
   cli        the user's command at full width: --run --segment --eval on a
              680x1200 PNG scene of 40 frames with a GT mesh, the
              configs/ovo.yaml chain from a copied config tree (vanilla
@@ -156,10 +180,10 @@ The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
 
     python3 chip_smoke.py --profile PATH [--image-size 1280 | --crop | --cli
-                                          | --sam1]
+                                          | --sam1 | --orb]
 
 runs only the amg_slice (the amg1280_slice, the crop_slice, the cli, the
-sam1_slice) three times: untraced, traced (the card's activity,
+sam1_slice, the orb_slice) three times: untraced, traced (the card's activity,
 torch.profiler; the kernel table written to PATH; the cli's --run loop only,
 with B12's device time per embedded keyframe; at 1280, B9b's device time per
 segmented keyframe), untraced again.
@@ -1828,6 +1852,27 @@ class WallScene:
         return seg, binary
 
 
+def out_and_back(wall: WallScene, n_out: int, zero_border: bool = False
+                 ) -> WallScene:
+    """``wall``'s first ``n_out`` frames, then the same frames back to
+    frame 0: 2 * n_out - 1 frames with ids 0, 1, ..., each keeping its
+    original pose as GT (the texture is a function of world position, so
+    nothing is rendered anew). ``zero_border`` takes the depth off the
+    one-pixel border (the JAX-vs-port scenes' rule)."""
+    order = list(range(n_out)) + list(range(n_out - 2, -1, -1))
+    view = copy.copy(wall)
+    view.frames, view.poses = [], []
+    for k, f in enumerate(order):
+        _, image, depth, pose, cell = wall.frames[f]
+        if zero_border:
+            depth = depth.copy()
+            depth[[0, -1]] = 0.0
+            depth[:, [0, -1]] = 0.0
+        view.frames.append((k, image, depth, pose, cell))
+        view.poses.append(pose)
+    return view
+
+
 # ---------------------------------------------------------------------------
 # checkpoints in the official layouts
 # ---------------------------------------------------------------------------
@@ -2761,8 +2806,203 @@ def _small_region_sites() -> set:
             for n in range(first, first + len(lines))}
 
 
+def _orb_sync_sites() -> set:
+    """The ORB tier's host reads, as the sync report names them: the map's
+    count after each tracker keyframe's insert (``orbslam.map_count``) and
+    loop closure's two reads (``loop_closure._read_gates``,
+    ``_read_overlaps``)."""
+    import inspect
+
+    from ovo_tpu_torch.mapping import loop_closure
+    from ovo_tpu_torch.slam import orbslam
+
+    sites = set()
+    for fn, path in ((orbslam.map_count, "slam/orbslam.py"),
+                     (loop_closure._read_gates, "mapping/loop_closure.py"),
+                     (loop_closure._read_overlaps,
+                      "mapping/loop_closure.py")):
+        lines, first = inspect.getsourcelines(fn)
+        sites |= {f"{path}:{n}" for n in range(first, first + len(lines))}
+    return sites
+
+
+def orb_slam_config() -> dict:
+    """configs/ovo.yaml's slam section for Replica, read through the port's
+    config chain: the orbslam backbone with configs/slam/orbslam/
+    replica.yaml's gates."""
+    from pathlib import Path
+
+    from ovo_tpu_torch.config import assemble_run_config
+
+    cfg = assemble_run_config(Path(__file__).resolve().parent / "configs",
+                              "Replica", "smoke0")
+    if not cfg["slam"]["slam_module"].startswith("orbslam"):
+        raise AssertionError(f"configs/ovo.yaml's backbone is "
+                             f"{cfg['slam']['slam_module']}")
+    return cfg["slam"]
+
+
+# a loop-closure pair is near a gate when its centroid distance or its
+# descriptors' cosine lies within this of th_centroid / th_cossim
+NEAR_GATE = 1e-5
+
+
+class OrbProbe:
+    """While active, records the ORB tier's work in ``sem_map``'s run with no
+    host read of the card: each tracker call's state and host time, each
+    ``update_map`` and ``_rebuild_map`` (host time, and stream time between
+    CUDA events read after the run), each loop closure's fused pairs, the
+    store's active ids around it and its gates' inputs, and each keyframe
+    cull's dropped descriptor records."""
+
+    def __init__(self, sem_map):
+        self.sem_map = sem_map
+        self.states, self.track_s = [], []
+        self.spans = {"update_map": [], "rebuild_map": []}
+        self.closures, self.gates, self.dropped = [], [], []
+
+    def _timed(self, obj, name, key):
+        inner = getattr(obj, name)
+        spans = self.spans[key]
+
+        def timed(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            t0 = time.time()
+            out = inner(*a, **kw)
+            ev[1].record()
+            spans.append((time.time() - t0, ev))
+            return out
+
+        setattr(obj, name, timed)
+
+    def __enter__(self):
+        from ovo_tpu_torch.mapping import loop_closure, semantic
+
+        backbone, ovo = self.sem_map.slam_backbone, self.sem_map.ovo
+        tracker = backbone.tracker
+        process = tracker.process_image_rgbd
+
+        def track(*a, **kw):
+            t0 = time.time()
+            state = process(*a, **kw)
+            self.track_s.append(time.time() - t0)
+            self.states.append(state)
+            return state
+
+        tracker.process_image_rgbd = track
+        self._timed(ovo, "update_map", "update_map")
+        self._timed(backbone, "_rebuild_map", "rebuild_map")
+        drop = ovo.drop_keyframes
+
+        def drop_keyframes(culled):
+            before = len(ovo.kf_descriptors)
+            drop(culled)
+            self.dropped.append((len(culled), before - len(ovo.kf_descriptors)))
+
+        ovo.drop_keyframes = drop_keyframes
+        self.saved = (semantic.semantic_loop_closure,
+                      loop_closure._gate_and_sample)
+        closure, gate_fn = self.saved
+
+        def semantic_loop_closure(map_state, store, *a, **kw):
+            out = closure(map_state, store, *a, **kw)
+            self.closures.append((dict(out[2]), store.active,
+                                  out[1].active))
+            return out
+
+        def gate_and_sample(map_state, store, th_centroid, th_cossim):
+            out = gate_fn(map_state, store, th_centroid, th_cossim)
+            self.gates.append((out, store.has_clip, th_centroid, th_cossim))
+            return out
+
+        semantic.semantic_loop_closure = semantic_loop_closure
+        loop_closure._gate_and_sample = gate_and_sample
+        return self
+
+    def __exit__(self, *exc):
+        from ovo_tpu_torch.mapping import loop_closure, semantic
+
+        semantic.semantic_loop_closure, loop_closure._gate_and_sample = \
+            self.saved
+
+    def near_gate_pairs(self) -> list:
+        """Per loop closure, the candidate pairs (i < j, both alive and
+        described) within NEAR_GATE of the centroid or the cosine gate."""
+        out = []
+        for (_, centroids, alive, _, cos), has, th_c, th_s in self.gates:
+            live = alive & has
+            dist = torch.cdist(centroids.double(), centroids.double())
+            near = ((dist - th_c).abs() <= NEAR_GATE) | (
+                (cos.double() - th_s).abs() <= NEAR_GATE)
+            ids = torch.arange(len(live), device=live.device)
+            near &= live[:, None] & live[None, :] & (
+                ids[:, None] < ids[None, :])
+            out.append({tuple(p) for p in near.nonzero().tolist()})
+        return out
+
+    def record(self) -> dict:
+        """The probe's numbers (reads the card: call after the run)."""
+        torch.cuda.synchronize()
+        backbone = self.sem_map.slam_backbone
+        kfs = backbone.tracker.get_keyframes()
+
+        def ms(key):
+            host = [s * 1e3 for s, _ in self.spans[key]]
+            stream = [ev[0].elapsed_time(ev[1]) for _, ev in self.spans[key]]
+            return dict(calls=len(host), host_ms=host, stream_ms=stream)
+
+        removed = [int((before & ~after).sum()) - len(fused)
+                   for fused, before, after in self.closures]
+        return dict(
+            tracker_frames=len(self.states),
+            tracker_ms_per_frame_median=statistics.median(self.track_s) * 1e3,
+            tracker_ms_per_frame_mean=statistics.mean(self.track_s) * 1e3,
+            tracker_states=sorted(set(self.states)),
+            big_changes=backbone.last_big_change,
+            tracker_keyframes=len(kfs),
+            culled_keyframes=sorted(int(round(f)) for f, _, c in kfs if c),
+            mapped_keyframes=sorted(backbone.kfs),
+            update_map=ms("update_map"), rebuild_map=ms("rebuild_map"),
+            fused=[sorted(f.items()) for f, _, _ in self.closures],
+            instances_fused=sum(len(f) for f, _, _ in self.closures),
+            instances_removed=sum(removed),
+            culled_descriptor_records_dropped=sum(d for _, d in self.dropped),
+            pairs_near_gate=[len(p) for p in self.near_gate_pairs()])
+
+    def check(self, tag: str) -> None:
+        """The ORB path's gates: the tracker OK on every frame, a big change
+        followed through update_map, a culled keyframe's descriptors
+        dropped and its block gone, the blocks a disjoint ascending
+        partition of [0, count)."""
+        from ovo_tpu_torch.slam.orbslam import STATE_OK
+
+        backbone = self.sem_map.slam_backbone
+        culled = {int(round(f)) for f, _, c in backbone.tracker.get_keyframes()
+                  if c}
+        if set(self.states) != {STATE_OK}:
+            raise AssertionError(f"{tag}: tracker states {self.states}")
+        if backbone.last_big_change < 1 or not self.spans["update_map"] \
+                or not self.spans["rebuild_map"]:
+            raise AssertionError(f"{tag}: no loop closure followed: big "
+                                 f"changes {backbone.last_big_change}")
+        if not culled or culled & set(backbone.kf_blocks) \
+                or not sum(d for _, d in self.dropped):
+            raise AssertionError(f"{tag}: culled keyframes {culled}, "
+                                 f"dropped {self.dropped}")
+        end = 0
+        for blk in backbone.kf_blocks.values():
+            if blk["range"][0] != end or blk["range"][1] < end:
+                raise AssertionError(f"{tag}: block table "
+                                     f"{backbone.kf_blocks}")
+            end = blk["range"][1]
+        if end != int(backbone.get_map().count):
+            raise AssertionError(f"{tag}: blocks end at {end}, count "
+                                 f"{int(backbone.get_map().count)}")
+
+
 def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
-              image_size=1024, sam_batch=1, sam1=False):
+              image_size=1024, sam_batch=1, sam1=False, orb=False):
     """OVOSemMap on the 680x1200 wall scene, segmenting every 10th frame:
     precomputed-style masks from the scene, or (``live``) the SAM2 Hiera-L
     automatic masks built from the config at ``image_size``, or with
@@ -2771,7 +3011,11 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
     replaces the config's clip section; ``sam_batch`` > 1 micro-batches the
     live masks (the batch_slice: the only host syncs allowed in its frame
     loop are the flushes' validity reads). Returns the phase's record and
-    the map."""
+    the map. ``orb`` (the orb_slice, with ``live``): configs/ovo.yaml's
+    own backbone, the native tracker's poses, on the scene's first
+    ``frames`` frames out and back (2 * frames - 1 frames); the ORB tier's
+    host reads are the only host syncs allowed in its frame loop, and
+    OrbProbe's gates must hold."""
     from ovo_tpu_torch.data.masks import CallableMaskSource
     from ovo_tpu_torch.mapping.pipeline import OVOSemMap
     from ovo_tpu_torch.ops import cuda_build
@@ -2782,12 +3026,21 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         tag = "batch_slice"
     if sam1:
         tag = "sam1_slice"
+    if orb:
+        tag = "orb_slice"
     t0 = time.time()
-    scene = replica_wall_scene(frames)
-    masks = {fid: scene.masks(fid) for fid in range(0, len(scene), 10)}
+    # the orb_slice goes out along the first half of the 60-frame scene and
+    # back, whichever phase built the scene first
+    scene = replica_wall_scene(2 * frames if orb else frames)
+    if orb:
+        scene = out_and_back(scene.head(frames), frames)
+    masks = {fid: scene.masks(fid) for fid in range(0, len(scene), 10)
+             if not live}
     t_scene = time.time() - t0
     with tempfile.TemporaryDirectory() as tmp:
         cfg = json.loads(json.dumps(REPLICA_CONFIG))
+        if orb:
+            cfg["slam"] = dict(orb_slam_config(), save_estimated_cam=True)
         if clip:
             cfg["semantic"]["clip"] = dict(clip)
         # the embedder is built from the config (PE-Core-L14-336, or the
@@ -2806,6 +3059,7 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         sem_map.ovo.mask_source = recorder
         embedder = CountingEmbedder(sem_map.ovo.embedder)
         sem_map.ovo.embedder = embedder
+        probe = OrbProbe(sem_map) if orb else None
         # an earlier slice's map lives in a reference cycle (its patched
         # drain below) until a full collection: free it, so that this run's
         # peak reads its own and no collection falls inside its wall
@@ -2819,8 +3073,9 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
             prof.__enter__()
         t0 = time.time()
         # every synchronizing CUDA call in the run raises a warning, with
-        # the Python line that made it; the frame loop ends where the
-        # deferred-descriptor drain starts
+        # the Python line that made it; the frame loop ends where the last
+        # deferred-descriptor drain starts (a loop closure drains the queue
+        # inside the loop)
         loop_end = []
         drain = sem_map.ovo.complete_semantic_info
 
@@ -2829,6 +3084,8 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
             drain()
 
         sem_map.ovo.complete_semantic_info = marked_drain
+        if probe is not None:
+            probe.__enter__()
         torch.cuda.set_sync_debug_mode("warn")
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -2836,13 +3093,15 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         wall = time.time() - t0
+        if probe is not None:
+            probe.__exit__(None, None, None)
         if prof is not None:
             prof.__exit__(None, None, None)
         counts = cuda_build.launch_counts()
         sync_list = [f"{w.filename.split('ovo_tpu_torch/')[-1]}:{w.lineno}"
                      for w in caught if "synchroniz" in str(w.message)]
         loop_syncs = [f"{w.filename.split('ovo_tpu_torch/')[-1]}:{w.lineno}"
-                      for w in caught[:loop_end[0]]
+                      for w in caught[:loop_end[-1]]
                       if "synchroniz" in str(w.message)]
     ovo = sem_map.ovo
     st = sem_map.slam_backbone.get_map()
@@ -2866,9 +3125,12 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         # the seg, bbox and global views each run the whole tower
         expect.update(fused_attention=3 * depth_layers * n_emb)
     else:
-        # one tower call per embedded keyframe, or per micro-batch of them
+        # one tower call per embedded keyframe, or per micro-batch of them;
+        # a loop closure drops the culled keyframes' records, not their
+        # launches
         expect.update(rope_packed_attention=depth_layers
-                      * embedder.tower_calls, masked_pool=n_emb)
+                      * embedder.tower_calls,
+                      masked_pool=embedder.tower_calls if orb else n_emb)
     if live:
         per_kf = (SAM1_LAUNCHES_PER_KF if sam1
                   else AMG_LAUNCHES_PER_KF if image_size == 1024
@@ -2878,12 +3140,15 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         n_trunk = len(recorder.batches) if sam_batch > 1 else n_seg
         for k, v in TRUNK_LAUNCHES.items():
             expect[k] -= v * (n_seg - n_trunk)
-    if n_emb == 0 or counts != expect:
-        raise AssertionError(f"{tag}: launches {counts}, expected {expect}")
+    if n_emb == 0 or counts != expect or (
+            orb and embedder.tower_calls != n_seg):
+        raise AssertionError(f"{tag}: launches {counts}, expected {expect}, "
+                             f"{embedder.tower_calls} tower calls")
     # the batch_slice's flushes read each keyframe's mask validity on the
     # host (the reference's skip-on-empty); nothing else may sync
     allowed = (_validity_read_sites() if sam_batch > 1
-               else _small_region_sites() if sam1 else set())
+               else _small_region_sites() if sam1
+               else _orb_sync_sites() if orb else set())
     if set(loop_syncs) - allowed:
         raise AssertionError(f"{tag}: host syncs in the frame loop: "
                              f"{collections.Counter(loop_syncs)}")
@@ -2917,6 +3182,16 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
                                  f"{per_seg}")
         record.update(launches_per_segmented_keyframe=per_seg,
                       encoder=SAM1_LIVE["sam_encoder"])
+    if orb:
+        probe.check(tag)
+        record.update(
+            probe.record(), slam={k: v for k, v in cfg["slam"].items()
+                                  if k.startswith(("kf_", "loop_"))},
+            launches_per_segmented_keyframe={
+                k: counts[k] / n_seg for k in AMG_LAUNCHES_PER_KF},
+            launches_per_tower_call={
+                k: counts[k] / embedder.tower_calls
+                for k in ("rope_packed_attention", "masked_pool")})
     if sam_batch > 1:
         record.update(sam_batch=sam_batch, batches=recorder.batches,
                       tower_calls=embedder.tower_calls,
@@ -3103,6 +3378,28 @@ REFERENCE_CLI = {
                  "mask_res": 64}}}
 
 
+# the ORB reference scene's config: REFERENCE_CLI's models and sizes on
+# configs/ovo.yaml's own backbone (orbslam), with tracker gates for a 64x96
+# scene whose camera steps ~8 cm a frame: configs/slam/orbslam/replica.yaml
+# is tuned for 680x1200 frames, and its 0.15 m keyframes and 8-keyframe
+# loop gap close no loop in 23 frames
+REFERENCE_ORB = dict(
+    {k: v for k, v in REFERENCE_CLI.items() if k != "slam"},
+    slam={"kf_trans_th": 0.05, "loop_min_kf_gap": 5, "loop_radius": 0.15,
+          "loop_rot_limit": 1.0, "loop_inlier_th": 0.3})
+
+
+def reference_orb_scene(root, scene: str) -> WallScene:
+    """The ORB reference scene under ``root``: a 64x96 wall, its first 12
+    frames out and back (23 frames), the border without depth."""
+    cam = REFERENCE_CLI["cam"]
+    wall = out_and_back(WallScene(30, cam["H"], cam["W"], cam["fx"],
+                                  cam["fy"], cam["cx"], cam["cy"], seed=3,
+                                  cell=0.8), 12, zero_border=True)
+    write_replica_scene(root, scene, wall, gt_stride=1)
+    return wall
+
+
 def run_reference_cli(dev) -> dict:
     """run_eval.main --run --segment --eval on a small PNG scene, on the
     card under OVO_FUSED_BLOCK=1 (tiny-pe through B12a / B12b) and with
@@ -3214,6 +3511,141 @@ def run_reference_cli(dev) -> dict:
                 clear_vertex_share=float(clear.mean()),
                 miou=card["metrics"]["iou"], macc=card["metrics"]["acc"],
                 trace_kernels=ours, launches=card["counts"])
+
+
+class OrbRunRecorder:
+    """While active, ``OVOSemMap.run`` keeps its mapper and runs under an
+    OrbProbe (``self.runs``: one (mapper, probe) per run)."""
+
+    def __enter__(self):
+        from ovo_tpu_torch.mapping.pipeline import OVOSemMap
+
+        self.cls, self.orig, self.runs = OVOSemMap, OVOSemMap.run, []
+
+        def run(sem_map):
+            with OrbProbe(sem_map) as probe:
+                self.orig(sem_map)
+            self.runs.append((sem_map, probe))
+
+        OVOSemMap.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self.orig
+
+
+def run_reference_orb(dev) -> dict:
+    """run_eval.main --run --segment --eval on the ORB reference scene
+    (64x96, 23 frames out and back; hiera_test, tiny-pe, gates at 0;
+    configs/ovo.yaml's own orbslam backbone with REFERENCE_ORB's tracker
+    gates) on the card and with --device cpu, the same weights: the same
+    keyframes, big changes and culled set; equal map count, point ids and
+    object ids, points within 1e-5; the same active ids and fused pairs
+    (a pair within NEAR_GATE of a gate on the card may differ, and is
+    reported); descriptors within cosine 1e-4; labels equal where the
+    instance's top-2 margin is above 1e-4, metrics equal when the labels
+    are."""
+    import os
+    from pathlib import Path
+
+    from ovo_tpu_torch.eval.transfer import match_labels_to_vtx
+    from ovo_tpu_torch.ops import cuda_build
+    from ovo_tpu_torch.utils import io as io_utils
+    from ovo_tpu_torch.utils import yaml_subset
+
+    scene = "smoke_orb"
+    out, cwd = {}, os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        reference_orb_scene(tmp, scene)
+        root = cli_config_root(tmp, scene, REFERENCE_ORB)
+        classes = yaml_subset.load(root / "Replica" / "eval_info.yaml")[
+            "class_names_reduced"]
+        mesh = io_utils._read_ply_vertices(
+            Path(tmp) / "data/input/Datasets/Replica" / f"{scene}_mesh.ply")
+        os.chdir(tmp)
+        try:
+            with CPUDrawnWeights(clip_seed=1):
+                for device in ("cuda", "cpu"):
+                    cuda_build.reset_launch_counts()
+                    with OrbRunRecorder() as rec:
+                        metrics = _cli(_cli_argv(scene, device, "run",
+                                                 "segment", "eval",
+                                                 device=device), root)
+                    sem_map, probe = rec.runs[0]
+                    exp = Path(tmp) / "data/output/Replica" / device
+                    ovo = sem_map.ovo
+                    out[device] = dict(
+                        metrics=metrics, counts=cuda_build.launch_counts(),
+                        map=sem_map.slam_backbone.get_map(),
+                        backbone=sem_map.slam_backbone, ovo=ovo,
+                        probe=probe.record(), near=probe.near_gate_pairs(),
+                        sims=ovo.query(classes, ["This is a photo of a {}"]),
+                        labels=io_utils.read_labels(
+                            exp / "replica" / f"{scene}.txt"))
+        finally:
+            os.chdir(cwd)
+    card, cpu = out["cuda"], out["cpu"]
+    for key in ("big_changes", "tracker_keyframes", "culled_keyframes",
+                "mapped_keyframes", "tracker_states"):
+        if card["probe"][key] != cpu["probe"][key]:
+            raise AssertionError(f"reference_orb: {key} differ: "
+                                 f"{card['probe'][key]} / {cpu['probe'][key]}")
+    if cpu["probe"]["big_changes"] < 1 or not cpu["probe"]["culled_keyframes"] \
+            or card["probe"]["update_map"]["calls"] < 1:
+        raise AssertionError(f"reference_orb: no loop closure: "
+                             f"{cpu['probe']}")
+    ms_card, ms_cpu = card["map"], cpu["map"]
+    n = int(ms_cpu.count)
+    if int(ms_card.count) != n or not all(
+            torch.equal(getattr(ms_card, f)[:n].cpu(), getattr(ms_cpu, f)[:n])
+            for f in ("point_ids", "obj_ids")):
+        raise AssertionError("reference_orb: card and CPU maps differ")
+    pts_err = float((ms_card.points[:n].cpu() - ms_cpu.points[:n]).abs()
+                    .max())
+    if pts_err > 1e-5:
+        raise AssertionError(f"reference_orb: points off by {pts_err}")
+    ids = cpu["ovo"].active_ids()
+    if not np.array_equal(card["ovo"].active_ids(), ids):
+        raise AssertionError("reference_orb: active ids differ")
+    near = set().union(*card["near"]) if card["near"] else set()
+    flipped = set()
+    for fc, fp in zip(card["probe"]["fused"], cpu["probe"]["fused"]):
+        flipped |= {(i, j) for j, i in set(fc) ^ set(fp)}
+    if len(card["probe"]["fused"]) != len(cpu["probe"]["fused"]) \
+            or flipped - near:
+        raise AssertionError(f"reference_orb: fused pairs differ: "
+                             f"{card['probe']['fused']} / "
+                             f"{cpu['probe']['fused']}")
+    a = card["ovo"].store.clip_feature.cpu().double()[ids]
+    b = cpu["ovo"].store.clip_feature.double()[ids]
+    has = cpu["ovo"].store.has_clip[ids]
+    cos = (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-30)
+    worst = float((cos[has] - 1).abs().max()) if bool(has.any()) else 0.0
+    if not bool(has.any()) or worst > 1e-4:
+        raise AssertionError(f"reference_orb: cosine off by {worst}")
+    top2 = np.sort(cpu["sims"], axis=1)
+    clear_ids = set(ids[top2[:, -1] - top2[:, -2] > 1e-4].tolist())
+    mesh_ins, _, _ = match_labels_to_vtx(
+        ms_cpu.obj_ids[:n].numpy(), ms_cpu.points[:n].numpy(), mesh)
+    clear = np.isin(mesh_ins, list(clear_ids))
+    if clear.mean() < 0.5 or not np.array_equal(card["labels"][clear],
+                                                cpu["labels"][clear]):
+        raise AssertionError(f"reference_orb: labels differ on clear "
+                             f"vertices ({clear.mean():.2f} clear)")
+    labels_equal = bool(np.array_equal(card["labels"], cpu["labels"]))
+    if labels_equal and json.dumps(card["metrics"]) != json.dumps(
+            cpu["metrics"]):
+        raise AssertionError(f"reference_orb: metrics differ: "
+                             f"{card['metrics']} / {cpu['metrics']}")
+    return dict(points=n, instances=len(ids), max_points_err=pts_err,
+                max_cos_dev=worst, labels_equal=labels_equal,
+                clear_vertex_share=float(clear.mean()),
+                pairs_near_gate=card["probe"]["pairs_near_gate"],
+                fused=card["probe"]["fused"],
+                big_changes=card["probe"]["big_changes"],
+                culled_keyframes=card["probe"]["culled_keyframes"],
+                update_map_calls=card["probe"]["update_map"]["calls"],
+                miou=card["metrics"]["iou"], launches=card["counts"])
 
 
 # the full-width CLI scene: configs/ovo.yaml's chain for Replica (680x1200,
@@ -3692,9 +4124,10 @@ def _profile_summary(prof, wall: float, path: str) -> dict:
 
 def main(argv) -> int:
     """No arguments: every phase. ``--profile PATH [--image-size N |
-    --crop | --cli | --sam1]``: only gpu, build and the amg_slice (or, at
-    1280, the amg1280_slice; with ``--crop`` the crop_slice; with ``--cli``
-    the cli, its ``--run`` loop traced; with ``--sam1`` the sam1_slice)
+    --crop | --cli | --sam1 | --orb]``: only gpu, build and the amg_slice
+    (or, at 1280, the amg1280_slice; with ``--crop`` the crop_slice; with
+    ``--cli`` the cli, its ``--run`` loop traced; with ``--sam1`` the
+    sam1_slice; with ``--orb`` the orb_slice)
     three times: untraced, then with the card's
     activity traced by torch.profiler (the busy share is read within that
     run, the kernel table written to PATH), then untraced again."""
@@ -3742,6 +4175,8 @@ def main(argv) -> int:
             kw, tag = dict(frames=30, clip=CROP_CLIP), "crop_slice"
         if "--sam1" in argv:
             kw, tag = dict(live=True, frames=30, sam1=True), "sam1_slice"
+        if "--orb" in argv:
+            kw, tag = dict(live=True, frames=30, orb=True), "orb_slice"
         emit(tag, **run_slice(dev, **kw)[0])
         emit("profile", **run_slice(dev, profile_path, **kw)[0])
         emit(tag, **run_slice(dev, **kw)[0])
@@ -3856,6 +4291,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     emit("sam1_slice", **run_slice(dev, live=True, frames=30, sam1=True)[0])
     torch.cuda.empty_cache()
+    emit("orb_slice", **run_slice(dev, live=True, frames=30, orb=True)[0])
+    torch.cuda.empty_cache()
     emit("checkpoint", **run_checkpoint(dev))
     torch.cuda.empty_cache()
     crop, crop_map = run_slice(dev, frames=30, clip=CROP_CLIP)
@@ -3867,6 +4304,7 @@ def main(argv) -> int:
     del pe_map, crop_map
     torch.cuda.empty_cache()
     emit("reference_cli", **run_reference_cli(dev))
+    emit("reference_orb", **run_reference_orb(dev))
     cli = run_cli(dev)
     emit("cli", **cli)
     emit("kernel_device", **run_kernel_device(dev))

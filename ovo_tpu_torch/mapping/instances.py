@@ -235,6 +235,43 @@ def update_descriptors(store: InstanceStore, ins_ids: torch.Tensor,
     return store._replace(clip_feature=clip_feature, has_clip=has_clip)
 
 
+@torch.no_grad()
+def drop_keyframe_descriptors(store: InstanceStore, ins_ids: torch.Tensor,
+                              descs: torch.Tensor, valid: torch.Tensor,
+                              culled_kfs: torch.Tensor, *,
+                              fusion: str = "avg_pooling") -> InstanceStore:
+    """Take culled keyframes' contributions out of the store and re-fuse
+    every instance from what survives.
+
+    ins_ids / descs / valid: the per-(kf, instance) descriptor rows of all
+      culled keyframes ((B,), (B, D), (B,)); invalid rows are ignored.
+    culled_kfs: (C,) i32 culled keyframe ids, padded with -2 (which matches
+      no slot: -1 marks an empty one).
+    """
+    scatter, _, v = _rows(store, ins_ids, valid)
+    desc_sum = _scatter_add(store.desc_sum, scatter,
+                            torch.where(v[:, None], -descs.float(), 0.0))
+    desc_cnt = _scatter_add(store.desc_cnt, scatter,
+                            torch.where(v, -1, 0).to(torch.int32)).clamp_min(0)
+    # a culled keyframe leaves every instance's top-kf slots, whether or not
+    # it computed a descriptor
+    hit = (store.top_kf[:, :, None] == culled_kfs.to(torch.int32)[
+        None, None, :]).any(dim=-1)
+    store = store._replace(
+        desc_sum=desc_sum, desc_cnt=desc_cnt,
+        top_area=torch.where(hit, -1, store.top_area),
+        top_kf=torch.where(hit, -1, store.top_kf),
+        slot_valid=store.slot_valid & ~hit[:, :store.slot_valid.shape[1]])
+    if fusion == "avg_pooling":
+        fused = store.desc_sum / store.desc_cnt.clamp_min(1)[:, None]
+        has = store.desc_cnt > 0
+        return store._replace(clip_feature=torch.where(has[:, None], fused, 0.0),
+                              has_clip=store.has_clip & has)
+    fused, ok = _medoid(store.slot_desc, store.slot_valid, fusion)
+    return store._replace(clip_feature=torch.where(ok[:, None], fused, 0.0),
+                          has_clip=store.has_clip & ok)
+
+
 def _medoid(descs: torch.Tensor, valid: torch.Tensor, fusion: str
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched medoid over valid rows of (B, T, D): l1_medoid minimizes the

@@ -19,8 +19,14 @@ reference's step window -- from the first segment step, for
 ``profile_trace_steps`` (default 3) more steps, or to the end of the run --
 with ``torch.profiler`` (CUDA activity on the card, CPU activity on the
 CPU) and writes a Chrome trace there: PyTorch's format, where the JAX
-package writes ``jax.profiler``'s. The viewer stream and backbones other
-than ``vanilla`` come with later slices and raise here.
+package writes ``jax.profiler``'s.
+
+Backbones: ``vanilla`` (GT poses) and ``orbslam*`` (the native tracker's
+poses, mapping on its keyframes); when a backbone reports a big change
+after mapping a frame, the semantic map follows it through
+``SemanticMapper.update_map`` and the seconds it took count in the
+frame's ``spf``. The viewer stream and ``gaussian_slam`` come with later
+slices and raise here.
 """
 from __future__ import annotations
 
@@ -259,17 +265,24 @@ class OVOSemMap:
         c2w = self.slam_backbone.get_c2w(frame_id)
         if c2w is None or not (frame_data[2] > 0).any():
             return 0.0
-        do_map = frame_id % self.map_every == 0
+        slam_module = self.config["slam"]["slam_module"]
+        # the ORB tier decides on every frame whether it maps (its tracker's
+        # keyframes)
+        do_map = (frame_id % self.map_every == 0
+                  or slam_module.startswith("orbslam"))
         do_seg = frame_id % self.segment_every == 0
         # mapping on the segment cadence fuses the vanilla insert into the
         # association (one pass, shared projection and gathers)
-        fuse_this = (do_map and do_seg
+        fuse_this = (do_map and do_seg and slam_module == "vanilla"
                      and self.slam_backbone.supports_fused_insert
                      and self.ovo.sam_batch == 1)
+        t_lc = 0.0
         if do_map and not fuse_this:
             self.slam_backbone.map(frame_data, c2w)
+            if self.slam_backbone.map_updated:
+                t_lc = self._loop_closure()
         if not do_seg:
-            return 0.0
+            return t_lc
         if self.profile_trace and self._trace_state == 0:
             self._start_trace()
         t0 = time.time()
@@ -305,4 +318,17 @@ class OVOSemMap:
             self._trace_state += 1
             if self._trace_state > self.profile_trace_steps:
                 self._stop_trace()
-        return t_sem
+        return t_sem + t_lc
+
+    def _loop_closure(self) -> float:
+        """The backbone rebuilt its map (a SLAM big change): the semantic
+        map follows (``SemanticMapper.update_map``). Returns its seconds."""
+        t0 = time.time()
+        new_state = self.ovo.update_map(self.slam_backbone.get_map(),
+                                        self.slam_backbone.get_kfs())
+        if new_state is not None:
+            self.slam_backbone.update_pcd_obj_ids(new_state)
+        self.slam_backbone.map_updated = False
+        t_lc = time.time() - t0
+        print(f"Sem LC update took {t_lc};")
+        return t_lc

@@ -21,9 +21,15 @@ segment keyframes are buffered, segmented in one batched mask-source call
 descriptors are popped B at a time through the embedder's
 ``embed_masks_batch``. A flush reads each keyframe's mask validity on the
 host (the reference's skip-on-empty); it is the only host read of that
-path's frame loop. Loop closure (``update_map``), point sharding, the
-sharded query and the data-parallel embedder come with later slices and
-raise ``NotImplementedError`` here.
+path's frame loop. Point sharding, the sharded query and the
+data-parallel embedder come with later slices and raise
+``NotImplementedError`` here.
+
+Semantic loop closure (``update_map``, called by the pipeline when a SLAM
+backbone reports a big change): the deferred descriptors are drained, the
+descriptors of keyframes the backbone culled are taken out of the store,
+and overlapping instances are fused (``mapping/loop_closure.py``, two host
+reads of the device); the per-keyframe records follow the merges.
 
 Pluggable backends (duck-typed):
   mask_source.get_masks(image (H, W, 3) u8 numpy, frame_id) ->
@@ -47,6 +53,7 @@ from ..utils.async_scalar import AsyncScalar
 from . import instances as inst
 from .association import associate_and_insert_keyframe, associate_keyframe
 from .instances import InstanceStore, init_instance_store
+from .loop_closure import fusion_remap, semantic_loop_closure
 from .map_state import MapState
 
 _MEDOID_FUSIONS = ("l1_medoid", "cossim_medoid")
@@ -116,6 +123,9 @@ class SemanticMapper:
         self.track_th = int(config.get("track_th", 100))
         self.use_depth_filter = bool(config.get("depth_filter", False))
         self.kf_queue_delay = int(config.get("kf_queue_delay", 0))
+        self.th_centroid = float(config.get("th_centroid", 1.5))
+        self.th_cossim = float(config.get("th_cossim", 0.81))
+        self.th_points = float(config.get("th_points", 0.1))
         self.log = bool(config.get("log", False))
 
         self.keyframes_queue: deque = deque()
@@ -396,11 +406,66 @@ class SemanticMapper:
             }, print_output=True)
 
     # ------------------------------------------------------------------
-    # Later slices
+    # Loop closure
     # ------------------------------------------------------------------
 
     def update_map(self, map_state: MapState, kfs=None) -> MapState:
-        raise NotImplementedError("semantic loop closure is not ported yet")
+        """Semantic loop-closure update: drain the deferred descriptors,
+        take out those of keyframes the SLAM backbone culled (``kfs``: the
+        surviving dataset frame ids), then fuse overlapping instances."""
+        flushed = self.flush_segmentation(map_state)
+        if flushed is not None:
+            map_state = flushed
+        self.complete_semantic_info()
+        if kfs is not None:
+            surviving = set(kfs)
+            self.drop_keyframes([k for k in range(self.kf_id)
+                                 if self.frame_ids[k] not in surviving])
+        map_state, self.store, fused = semantic_loop_closure(
+            map_state, self.store, self.th_centroid, self.th_cossim,
+            self.th_points)
+        if fused:
+            self._remap_kf_descriptors(fused)
+        return map_state
+
+    def drop_keyframes(self, culled_kf_ids: Sequence[int]) -> None:
+        """Remove culled keyframes' descriptors and top-kf slots and re-fuse
+        every instance."""
+        if not culled_kf_ids:
+            return
+        dev = self.device
+        recs = [self.kf_descriptors.pop(k) for k in culled_kf_ids
+                if k in self.kf_descriptors]
+        if recs:
+            ids = torch.cat([r[0] for r in recs])
+            descs = torch.cat([r[1] for r in recs])
+            keep = torch.cat([r[2] for r in recs])
+        else:
+            ids = torch.zeros((1,), dtype=torch.int32, device=dev)
+            descs = torch.zeros((1, self.clip_dim), dtype=torch.float32,
+                                device=dev)
+            keep = torch.zeros((1,), dtype=torch.bool, device=dev)
+        self.store = inst.drop_keyframe_descriptors(
+            self.store, ids, descs, keep,
+            to_device(np.asarray(culled_kf_ids, np.int32), dev),
+            fusion=self.fusion)
+
+    def _remap_kf_descriptors(self, fused: Dict[int, int]) -> None:
+        """Point the per-keyframe descriptor rows (and the debug records) of
+        merged instances at their survivor, so that a later keyframe cull
+        subtracts from the right row. The instance-map snapshots stay as
+        recorded, as in the reference."""
+        K = self.store.capacity
+        remap = fusion_remap(K, fused)
+        remap_d = to_device(remap, self.device)
+        for k, (ids, descs, keep) in list(self.kf_descriptors.items()):
+            new_ids = torch.where(ids >= 0,
+                                  remap_d[ids.long().clamp(0, K - 1)], ids)
+            self.kf_descriptors[k] = (new_ids, descs, keep)
+        for k, (ids, areas) in list(self.kf_records.items()):
+            new_ids = np.where(ids >= 0,
+                               remap[np.clip(ids, 0, len(remap) - 1)], ids)
+            self.kf_records[k] = (new_ids, areas)
 
     def restore_dict(self, scene_dict: Dict[str, Any],
                      debug_info: bool = False) -> None:

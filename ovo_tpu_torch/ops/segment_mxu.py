@@ -6,7 +6,8 @@ and scatters run a row at a time (its PERF.md finding 1). On the GPU they
 are plain index ops; results are bit-equal to the matmul forms, including
 the out-of-range contracts:
 
-  table_lookup_int  out[i] = table[idx[i]]          (0 when out of range)
+  table_lookup      out[i] = table[idx[i]]          (0 when out of range)
+  table_lookup_int  the same for int32 tables of 16-bit values
   histogram         out[t] = #{i : idx[i] == t}     (out of range dropped)
   segment_or        out[t] = OR_i {rows[i] : idx[i] == t}
 
@@ -23,6 +24,21 @@ def _in_range(idx: torch.Tensor, n: int) -> torch.Tensor:
     """idx as int64 with every out-of-range entry sent to the sentinel n."""
     idx = idx.long()
     return torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
+
+
+def table_lookup(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """out[i] = table[idx[i]] for idx in [0, T); out-of-range rows return 0.
+    table: (T,) or (T, C), f32 or int32. A float table's -0.0 reads back as
+    +0.0, as the one-hot product's sum does."""
+    squeeze = table.ndim == 1
+    tbl = table[:, None] if squeeze else table
+    T = tbl.shape[0]
+    ext = torch.cat([tbl, tbl.new_zeros((1,) + tbl.shape[1:])])
+    out = ext.index_select(0, _in_range(idx, T).reshape(-1)).reshape(
+        idx.shape + tbl.shape[1:])
+    if out.is_floating_point():
+        out = out + 0.0
+    return out[..., 0] if squeeze else out
 
 
 def table_lookup_int(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,15 @@ from .vanilla import VanillaMapper  # noqa: F401
 
 
 def get_slam_backbone(config, dataset, cam_intrinsics, device):
-    """Backbone factory. Only the GT-pose ``vanilla`` backbone is ported."""
+    """Backbone factory: the GT-pose ``vanilla`` backbone or the native
+    tracker's ``orbslam*`` tier; ``gaussian_slam`` is not ported yet."""
     backbone = config["slam"].get("slam_module", "vanilla")
+    if backbone.startswith("orbslam"):
+        from .orbslam import WrapperORBSLAM
+
+        return WrapperORBSLAM(config, cam_intrinsics,
+                              world_ref=dataset[0][3], device=device)
     if backbone != "vanilla":
         raise NotImplementedError(
-            f"slam_module {backbone!r} is not ported yet (vanilla only)")
+            f"slam_module {backbone!r} is not ported yet")
     return VanillaMapper(config, cam_intrinsics, device)

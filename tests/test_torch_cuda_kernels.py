@@ -6,7 +6,9 @@ fused_mlp_block), the decoder's other routes' B7 (cross_i2t_proj), B8
 (layer_norm_rows), B11 (packed_heads_attention) and B13 (fused_mask_tail)
 (limits beside their tests below) against their plain PyTorch versions, on
 a CUDA card; B2, B3 and B4 also at SAM1's 7 decoder tokens, and the SAM1
-AMG program card against CPU. These tests skip without one (the kernels have no
+AMG program card against CPU; the ORB tier's map rebuild
+(``_apply_block_deltas``) and semantic loop closure, card against CPU.
+These tests skip without one (the kernels have no
 CPU mode). The file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
 
@@ -949,3 +951,110 @@ def test_device_ms_times_an_untraced_call_by_events(cuda_device,
     assert chip_smoke.UNTRACED == ["untraced"] and parts == {}
     assert 0.8 * traced < untraced < 3 * traced
     assert 0.5 * traced < again < 2 * traced
+
+
+def _orb_map(seed, cap=1 << 14, n=12000):
+    from ovo_tpu_torch.mapping.map_state import init_map_state
+
+    rng = np.random.default_rng(seed)
+    st = init_map_state(cap)
+    st.points[:n] = torch.from_numpy(
+        rng.normal(size=(n, 3)).astype(np.float32) * 3)
+    st.point_ids[:n] = torch.arange(n, dtype=torch.int32)
+    st.obj_ids[:n] = torch.from_numpy(
+        rng.integers(-1, 40, n).astype(np.int32))
+    st.colors[:] = torch.from_numpy(
+        rng.integers(0, 256, (cap, 3)).astype(np.uint8))
+    st.count.fill_(n)
+    st.next_point_id.fill_(n)
+    return st
+
+
+def _on(state, dev):
+    import dataclasses
+
+    return type(state)(**{f.name: getattr(state, f.name).to(dev)
+                          for f in dataclasses.fields(state)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [False, True])
+def test_apply_block_deltas_card_matches_cpu(cuda_device, compact):
+    """The ORB tier's map rebuild on the card against the CPU: ids, colours,
+    count and the compaction's order equal, points within 1e-6 (separate
+    elementwise ops on both sides)."""
+    from ovo_tpu_torch.slam.orbslam import _apply_block_deltas
+
+    rng = np.random.default_rng(5)
+    st = _orb_map(5)
+    starts = np.array([0, 3000, 3500, 9000, 12000, 12000, 12000, 12000],
+                      np.int32)
+    deltas = np.tile(np.eye(3, 4, dtype=np.float32), (8, 1, 1))
+    for b in range(4):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        deltas[b, :, :3] = q * np.sign(np.linalg.det(q))
+        deltas[b, :, 3] = rng.normal(size=3)
+    keep = np.float32([1, 0, 1, 0, 1, 1, 1, 1])
+    args = [torch.from_numpy(a) for a in (starts, deltas, keep)]
+    ref = _apply_block_deltas(_on(st, "cpu"), *args, compact=compact)
+    got = _apply_block_deltas(_on(st, cuda_device),
+                              *[a.to(cuda_device) for a in args],
+                              compact=compact)
+    n = int(ref.count)
+    assert int(got.count) == n == (12000 - 500 - 3000 if compact else 12000)
+    torch.testing.assert_close(got.points.cpu()[:n], ref.points[:n],
+                               atol=1e-6, rtol=0)
+    for f in ("point_ids", "obj_ids", "colors"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(ref, f)), f
+
+
+@pytest.mark.cuda
+def test_semantic_loop_closure_card_matches_cpu(cuda_device):
+    """Loop closure on the card against the CPU on instances placed far
+    from every gate (centroids ~1 cm or >= 4 m apart, cosines 1 or ~0):
+    the same fused dict, obj_ids and integer fields, floats within 1e-6."""
+    from ovo_tpu_torch.mapping import instances as inst
+    from ovo_tpu_torch.mapping.loop_closure import semantic_loop_closure
+    from ovo_tpu_torch.mapping.map_state import init_map_state
+
+    rng = np.random.default_rng(9)
+    D, K = 32, 64
+    d = rng.standard_normal(D).astype(np.float32)
+    centers = [(0, 0, 0), (0.01, 0, 0), (4, 0, 0), (4.01, 0, 0),
+               (8, 0, 0), (0.02, 0, 0)]
+    descs = [d, d, d, -d, d, d]
+    store = inst.init_instance_store(K, D)
+    store = inst.mint_instances(store, torch.tensor(len(centers) + 1))
+    pts, objs = [], []
+    for i, (c, de) in enumerate(zip(centers, descs)):
+        n = 300 + 50 * i
+        pts.append(np.asarray(c) + rng.normal(0, 0.02, (n, 3)))
+        objs.append(np.full(n, i, np.int32))
+        ids = torch.tensor([i], dtype=torch.int32)
+        store = inst.add_top_kf(store, ids, i, torch.tensor([n]),
+                                torch.tensor([True]))
+        store = inst.update_descriptors(store, ids,
+                                        torch.from_numpy(de)[None], i,
+                                        torch.tensor([True]))
+    pts = np.concatenate(pts).astype(np.float32)
+    objs = np.concatenate(objs)
+    st = init_map_state(1 << 12)
+    st.points[:len(pts)] = torch.from_numpy(pts)
+    st.obj_ids[:len(pts)] = torch.from_numpy(objs)
+    st.count.fill_(len(pts))
+    ref_map, ref_store, ref_fused = semantic_loop_closure(
+        _on(st, "cpu"), _on(store, "cpu"))
+    got_map, got_store, fused = semantic_loop_closure(
+        _on(st, cuda_device), _on(store, cuda_device))
+    assert fused == ref_fused == {1: 0, 5: 0}
+    assert torch.equal(got_map.obj_ids.cpu(), ref_map.obj_ids)
+    import dataclasses
+
+    for f in dataclasses.fields(ref_store):
+        a, b = getattr(got_store, f.name).cpu(), getattr(ref_store, f.name)
+        if b.is_floating_point():
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+        else:
+            assert torch.equal(a, b), f.name
+    # instance 6 was minted with no points: removed on both
+    assert not bool(got_store.active[6]) and bool(got_store.active[0])

@@ -6,9 +6,13 @@ pipeline with a text query, the crop embedders, the live SAM2 mask source
 and the CLI's ``--run --segment --eval`` on a PNG scene -- with jax, yaml
 and cv2 blocked; its entry points refuse to fall back to the CPU on their
 own. The subprocess also builds a SAM1 mask source and loads a SAM1, an
-open_clip and a merger checkpoint."""
+open_clip and a merger checkpoint, and drives the ORB backbone (the native
+tracker built from the port's own copy, loop closures through
+``update_map``). No string in the port's code names a path into the JAX
+package."""
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -57,7 +61,9 @@ def test_no_jax_or_reference_package_imports():
             "ovo_tpu_torch/ops/layer_norm.py", "ovo_tpu_torch/ops/mask_tail.py",
             "ovo_tpu_torch/ops/decoder_route.py",
             "ovo_tpu_torch/mapping/pipeline.py",
-            "ovo_tpu_torch/mapping/semantic.py"} <= names
+            "ovo_tpu_torch/mapping/semantic.py",
+            "ovo_tpu_torch/mapping/loop_closure.py",
+            "ovo_tpu_torch/slam/orbslam.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
@@ -67,6 +73,36 @@ def test_no_jax_or_reference_package_imports():
             for m in _imported_modules(p, top_level_only=True)
             if m.split(".")[0] in ("yaml", "cv2")]
     assert not lazy, lazy
+
+
+def _code_strings(path):
+    """The string constants of a module's code (docstrings left out)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(
+                    body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            yield node.lineno, node.value
+
+
+def test_no_path_into_the_reference_package():
+    """The port loads nothing from the JAX package's tree (its tracker
+    directory included): no string of its code names an ``ovo_tpu`` path
+    component."""
+    pat = re.compile(r"(^|[/\\])ovo_tpu([/\\]|$)")
+    files = sorted((ROOT / "ovo_tpu_torch").rglob("*.py"))
+    bad = [(str(p.relative_to(ROOT)), line, s) for p in files
+           for line, s in _code_strings(p) if pat.search(s)]
+    assert not bad, bad
+    assert pat.search("ovo_tpu/native/tracker") and pat.search("ovo_tpu")
+    assert not pat.search("ovo_tpu_torch/native/tracker")
 
 
 _BLOCKED_RUN = r"""
@@ -180,6 +216,23 @@ metrics = run_eval.main(run_eval.parse_args(
     "--dataset_name Replica --scenes tinyroom3 --experiment_name iso "
     "--run --segment --eval --device cpu".split()))
 assert np.isfinite(metrics["iou"]) and np.isfinite(metrics["acc"])
+# the ORB backbone: the native tracker, keyframe-gated mapping, loop
+# closures followed by the semantic map
+from ovo_tpu_torch.data.masks import RecordedEmbedder
+from orb_scene import CurvedWallDataset
+from synthetic_scene import class_embeddings, mask_label_fn
+orb = dict(cfg, slam={{"slam_module": "orbslam", "kf_trans_th": 0.05,
+                      "loop_min_kf_gap": 5, "loop_radius": 0.15,
+                      "loop_rot_limit": 1.0, "loop_inlier_th": 0.3}})
+orb["semantic"] = dict(cfg["semantic"], clip={{"clip_dim": 16}})
+m = OVOSemMap(orb, {out!r} + "_orb", dataset=CurvedWallDataset(40),
+              mask_source=CallableMaskSource(synthetic_mask_fn, 16, "cpu"),
+              embedder=RecordedEmbedder(16, mask_label_fn,
+                                        class_embeddings(16), device="cpu"),
+              device="cpu")
+m.run()
+assert m.slam_backbone.last_big_change >= 1
+assert int(m.slam_backbone.get_map().count) > 1000
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "yaml", "cv2")
                for m in sys.modules)
 print("ISOLATED-RUN-OK")

@@ -128,10 +128,11 @@ def test_pipeline_recorded_descriptors_match_jax(tmp_path):
 
 
 def test_pipeline_rejects_unported_options(tmp_path):
-    """The viewer stream, the ORB-SLAM backbone and the multi-device keys
-    still raise; the profiler hook, map restore, SAM micro-batching and the
-    debug restore are ported (tests/test_torch_orchestrator.py) and
-    construct."""
+    """The viewer stream, the Gaussian-SLAM backbone and the multi-device
+    keys still raise; the ORB-SLAM backbone (tests/test_torch_orbslam.py),
+    the profiler hook, map restore, SAM micro-batching and the debug
+    restore are ported (tests/test_torch_orchestrator.py) and construct;
+    the ORB backbone runs two frames."""
     cfg = make_config(16)
     embeds = class_embeddings(16)
     kw = dict(mask_source=CallableMaskSource(synthetic_mask_fn, 16, "cpu"),
@@ -143,9 +144,16 @@ def test_pipeline_rejects_unported_options(tmp_path):
     with pytest.raises(NotImplementedError):
         OVOSemMap(bad, tmp_path / "vis", **kw)
     bad = copy.deepcopy(cfg)
-    bad["slam"]["slam_module"] = "orbslam"
+    bad["slam"]["slam_module"] = "gaussian_slam"
     with pytest.raises(NotImplementedError):
-        OVOSemMap(bad, tmp_path / "orb", **kw)
+        OVOSemMap(bad, tmp_path / "gs", **kw)
+    orb = copy.deepcopy(cfg)
+    orb["slam"]["slam_module"] = "orbslam"
+    pipe = OVOSemMap(orb, tmp_path / "orb", **dict(
+        kw, dataset=SyntheticWallDataset(n_frames=2, textured=True)))
+    pipe.run()
+    assert sorted(pipe.slam_backbone.estimated_c2ws) == [0, 1]
+    assert int(pipe.slam_backbone.get_map().count) > 1000
     for key in ("point_shard", "shard_query", "dp_embed"):
         bad = copy.deepcopy(cfg)
         bad["semantic"]["parallel"] = {key: True}
