@@ -112,6 +112,30 @@ non-zero and prints no result):
              reads); tracker ms per frame (host), ms per update_map and
              _rebuild_map, fused and removed instances, the candidate
              pairs within 1e-5 of a gate
+  reference_gaussian  OVOSemMap with the gaussian_slam backbone
+             (configs/slam/gaussian_slam/replica.yaml's tracking: odometry
+             init; small mapping knobs, REF_GAUSSIAN) on a 12-frame 96 x 160
+             wall of varying depth with the tiny-pe card, on the card and on
+             the CPU: one render of the CPU run's map and its gradients to
+             all five inputs (2e-4; 1e-4 of the largest gradient), the
+             frame-0 map's live slots equal, track_pose on one map from one
+             pose within 1e-4 m, the runs' keyframes equal, live counts,
+             poses and instance counts within REF_GAUSSIAN_LIMITS (about
+             twice the largest spread seen between such runs)
+  gaussian_slice  the amg_slice's first 11 frames with the Gaussian-SLAM
+             backbone of configs/slam/gaussian_slam/replica.yaml at full
+             width (capacity 2^20, k_per_tile 64 with escalation, 262,144
+             seeds and 1000 iterations on frame 0, 100 on frames 5 and 10,
+             60 pose iterations on frames 2-10 from the native odometry):
+             the odometry built, every state tensor on the card, at least 8
+             tracked frames and 2 mapped keyframes, the tracked poses within
+             20 cm of GT; tracker ms per frame,
+             mapper ms per keyframe (frame 0 apart), the final map's render
+             forward and forward + backward ms, live gaussians, the
+             k_per_tile used, launches per segmented keyframe (B1 3, B2 47,
+             B3 3, B4 2; B5 24, B6 1 per tower call); the only host syncs in
+             the frame loop are the tier's reads (splat.read_host), counted
+             per frame and by caller
   checkpoint seeded random weights at full width under the official keys,
              torch.save'd and loaded through the factories:
              sam_vit_h_4b8939.pth (build_sam_mask_source), a PE-Core-L14-336
@@ -180,13 +204,14 @@ The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
 
     python3 chip_smoke.py --profile PATH [--image-size 1280 | --crop | --cli
-                                          | --sam1 | --orb]
+                                          | --sam1 | --orb | --gaussian]
 
 runs only the amg_slice (the amg1280_slice, the crop_slice, the cli, the
-sam1_slice, the orb_slice) three times: untraced, traced (the card's activity,
-torch.profiler; the kernel table written to PATH; the cli's --run loop only,
-with B12's device time per embedded keyframe; at 1280, B9b's device time per
-segmented keyframe), untraced again.
+sam1_slice, the orb_slice, the gaussian_slice) three times: untraced,
+traced (the card's activity, torch.profiler; the kernel table written to
+PATH; the cli's --run loop only, with B12's device time per embedded
+keyframe; at 1280, B9b's device time per segmented keyframe), untraced
+again.
 """
 from __future__ import annotations
 
@@ -3001,8 +3026,381 @@ class OrbProbe:
                                  f"{int(backbone.get_map().count)}")
 
 
+# the gaussian_slice's frames, the 60-frame wall's first: mapped 0, 5, 10
+# (frame 0 the new submap's 1000 iterations), segmented 0 and 10, frames
+# 2-10 tracked by rendering
+GAUSSIAN_FRAMES = 11
+
+
+# the tracked poses' largest distance from GT: on the wall's 4 cm steps the
+# odometry and the render tracker held 1.2 mm to 5.0 cm over five card runs
+# (one settled 5 cm off from its second tracked frame on: the card's
+# atomics reorder the map's Adam run, which is chaotic); a tracker that
+# loses the wall drifts past a metre in ten frames (PERF.md's findings)
+GAUSSIAN_POSE_M = 0.2
+
+
+def gaussian_slam_config() -> dict:
+    """The slam, mapping and tracking sections of the Gaussian-SLAM tier
+    for Replica: configs/slam/gaussian_slam/replica.yaml read through the
+    port's config chain (capacity 2^20, k_per_tile 64, 1000 / 100 mapping
+    and 60 tracking iterations, odometry init)."""
+    from pathlib import Path
+
+    from ovo_tpu_torch.config import assemble_run_config
+
+    cfg = assemble_run_config(Path(__file__).resolve().parent / "configs",
+                              "Replica", "smoke0",
+                              {"slam": {"slam_module": "gaussian_slam"}})
+    return {k: cfg[k] for k in ("slam", "mapping", "tracking")}
+
+
+def _gaussian_sync_sites() -> set:
+    """The Gaussian-SLAM tier's host reads (``ops/splat.read_host``: the
+    tracker's two a frame, the mapper's pair totals and overflow checks,
+    the K escalation's), as the sync report names them."""
+    import inspect
+
+    from ovo_tpu_torch.ops import splat
+
+    lines, first = inspect.getsourcelines(splat.read_host)
+    return {f"ops/splat.py:{n}" for n in range(first, first + len(lines))}
+
+
+# the modules that import splat.read_host by name
+_READ_HOST_USERS = ("ovo_tpu_torch.ops.splat",
+                    "ovo_tpu_torch.slam.gaussian.mapper",
+                    "ovo_tpu_torch.slam.gaussian.tracker")
+
+
+class GaussianProbe:
+    """While active, records the Gaussian-SLAM backbone's work in
+    ``sem_map``'s run: host time of each ``track_camera`` and ``map`` call
+    (each ends in a host read, so the card's work is inside), of each
+    ``track_pose`` and of the odometry, and each host read by its caller
+    and frame."""
+
+    def __init__(self, sem_map):
+        self.sem_map = sem_map
+        self.track, self.maps, self.track_pose = [], [], []
+        self.odometry_ms = []
+        self.reads = collections.Counter()
+        self.reads_per_call = {"track": [], "map": []}
+
+    def _wrap_calls(self, obj, name, log, kind):
+        inner = getattr(obj, name)
+
+        def timed(*a, **kw):
+            n0 = sum(self.reads.values())
+            t0 = time.time()
+            out = inner(*a, **kw)
+            log.append(((time.time() - t0) * 1e3, a[0][0]))
+            if kind:
+                self.reads_per_call[kind].append(
+                    sum(self.reads.values()) - n0)
+            return out
+
+        setattr(obj, name, timed)
+
+    def __enter__(self):
+        import importlib
+
+        from ovo_tpu_torch.slam.gaussian import backbone as gb
+
+        bb = self.sem_map.slam_backbone
+        self._wrap_calls(bb, "track_camera", self.track, "track")
+        self._wrap_calls(bb, "map", self.maps, "map")
+        if bb.odometer is not None:
+            est = bb.odometer.estimate_rel_pose
+
+            def odometry(*a):
+                t0 = time.time()
+                out = est(*a)
+                self.odometry_ms.append((time.time() - t0) * 1e3)
+                return out
+
+            bb.odometer.estimate_rel_pose = odometry
+        self.saved = [(gb, "track_pose", gb.track_pose)]
+        inner = gb.track_pose
+
+        def track_pose(*a, **kw):
+            t0 = time.time()
+            res = inner(*a, **kw)
+            self.track_pose.append(((time.time() - t0) * 1e3, res.init_loss,
+                                    res.loss, res.pair_cap))
+            return res
+
+        gb.track_pose = track_pose
+        for name in _READ_HOST_USERS:
+            mod = importlib.import_module(name)
+            read = mod.read_host
+            self.saved.append((mod, "read_host", read))
+
+            def counted(*ts, _read=read):
+                self.reads[sys._getframe(1).f_code.co_name] += 1
+                return _read(*ts)
+
+            mod.read_host = counted
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def record(self, scene) -> dict:
+        """The probe's numbers and the run's gates: the odometry built, at
+        least 8 frames through track_pose and 2 mapped keyframes, every
+        state tensor on the card, every pose finite and within
+        GAUSSIAN_POSE_M of GT (read after the run)."""
+        bb = self.sem_map.slam_backbone
+        if bb.odometer is None:
+            raise AssertionError("gaussian_slice: the odometry did not build")
+        off = [k for k, v in bb.state.tensors().items()
+               if v.device.type != "cuda"]
+        if off or bb.K.device.type != "cuda":
+            raise AssertionError(f"gaussian_slice: state off the card: {off}")
+        if len(self.track_pose) < 8 or len(bb.kfs) < 2:
+            raise AssertionError(f"gaussian_slice: {len(self.track_pose)} "
+                                 f"tracked frames, {len(bb.kfs)} keyframes")
+        err = []
+        for fid, c2w in sorted(bb.estimated_c2ws.items()):
+            if not np.isfinite(c2w).all():
+                raise AssertionError(f"gaussian_slice: pose {fid} not finite")
+            err.append(float(np.linalg.norm(c2w[:3, 3]
+                                             - scene.poses[fid][:3, 3])))
+        if max(err) > GAUSSIAN_POSE_M:
+            raise AssertionError(f"gaussian_slice: poses off GT by {err}")
+        tracked = [ms for ms, fid in self.track if fid >= 2]
+        maps = dict((fid, ms) for ms, fid in self.maps)
+        return dict(
+            tracked_frames=len(self.track_pose),
+            tracker_ms_per_frame_median=statistics.median(tracked),
+            tracker_ms_per_frame=tracked,
+            track_pose_ms=[r[0] for r in self.track_pose],
+            track_init_loss=[r[1] for r in self.track_pose],
+            track_best_loss=[r[2] for r in self.track_pose],
+            odometry_ms_median=statistics.median(self.odometry_ms),
+            mapped_keyframes=sorted(maps),
+            mapper_ms_frame0=maps[0],
+            mapper_ms_per_keyframe={k: v for k, v in maps.items() if k},
+            live_gaussians=int(bb.state.valid.sum()),
+            gaussian_capacity=bb.state.capacity,
+            k_per_tile_used=bb.cfg.k_per_tile,
+            pair_buffer=bb._pair_cap,
+            host_reads_by_caller=dict(self.reads),
+            host_reads_per_tracked_frame=self.reads_per_call["track"],
+            host_reads_per_mapped_keyframe=self.reads_per_call["map"],
+            pose_error_m=err, pose_error_m_max=max(err))
+
+
+def render_times(bb) -> dict:
+    """One render of the backbone's final map at the last keyframe's view,
+    forward and forward + backward (a seeded linear functional of color,
+    depth and alpha, gradients to all five render inputs): CUDA-event ms,
+    median of 10 after 3 warm-up calls."""
+    from ovo_tpu_torch.ops.splat import render_gaussians
+
+    st, w2c = bb.state, bb._kf_w2cs[-1]
+    hw = tuple(bb._kf_depths[-1].shape)
+    gen = torch.Generator(st.device).manual_seed(0)
+    weights = [torch.randn(hw + s, generator=gen, device=st.device)
+               for s in ((3,), (), ())]
+    inputs = [st.xyz, st.scales(), st.quats, st.opacity(), st.colors()]
+    kw = dict(img_hw=hw, k_per_tile=bb.cfg.k_per_tile, pair_cap=bb._pair_cap)
+
+    def forward():
+        with torch.no_grad():
+            return render_gaussians(*inputs, st.valid, w2c, bb.K, **kw)
+
+    def forward_backward():
+        params = [x.detach().requires_grad_(True) for x in inputs]
+        out = render_gaussians(*params, st.valid, w2c, bb.K, **kw)
+        f = sum((y * w).sum() for y, w in zip(
+            (out.color, out.depth, out.alpha), weights))
+        return torch.autograd.grad(f, params)
+
+    n_pairs = int(forward().n_pairs)
+    return dict(render_fwd_ms=time_ms(forward, 3, 10),
+                render_fwd_bwd_ms=time_ms(forward_backward, 3, 10),
+                render_pairs=n_pairs, render_hw=list(hw),
+                render_k_per_tile=bb.cfg.k_per_tile)
+
+
+# reference_gaussian's backbone knobs and limits. The card sums the
+# render's gathers' gradients with atomic adds (another order on every
+# run): gradients within REF_GAUSSIAN_GRAD of the largest. A whole run is
+# chaotic: Adam moves a parameter whose gradient sits at rounding level a
+# full step either way, the map's parameters part after a few iterations,
+# and later keyframes' seeding gates and the tracker read renders of them;
+# on this 96 x 160 wall the tracker also loses the camera (0.6 m off GT by
+# the last frame, on the card and on the CPU), so the runs' poses part as
+# their drifts do. Measured (PERF.md's findings): the CPU run against
+# itself with its mapped colours moved by 1e-6, 3e-6 and 1e-5
+# (run_reference_gaussian(cpu, perturb=...)) and three card runs against
+# the CPU part by up to 4.3% in live gaussians, 16.3 cm in pose and 12% in
+# instances; the outcome limits are about twice that. The parts that are
+# not chaotic are held tightly: a render, the frame-0 map (seeded before
+# any render) and one track_pose call on one map from one pose.
+REF_GAUSSIAN = {
+    "mapping": {"map_every": 2, "iterations": 20,
+                "new_submap_iterations": 100, "n_gaussians_capacity": 1 << 14,
+                "max_seeds": 1024, "new_submap_points_num": 6144,
+                "keyframe_window": 3, "k_per_tile": 32},
+    "tracking": {"iterations": 20},
+}
+REF_GAUSSIAN_GRAD = 1e-4
+REF_GAUSSIAN_LIMITS = {"live_share": 0.1, "pose_m": 0.35,
+                       "instances_share": 0.25, "track_pose_m": 1e-4}
+
+
+def _ref_gaussian_render(cpu, dev):
+    """One render of the CPU run's map at its last keyframe's view on the
+    card and on the CPU: the largest output difference and the largest
+    gradient difference over the largest gradient."""
+    from ovo_tpu_torch.ops.splat import render_gaussians
+
+    st = cpu.state
+    inputs = [st.xyz, st.scales(), st.quats, st.opacity(), st.colors()]
+    hw = tuple(cpu._kf_depths[-1].shape)
+    gen = np.random.default_rng(0)
+    weights = [gen.standard_normal(hw + s).astype(np.float32)
+               for s in ((3,), (), ())]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        params = [x.detach().to(d).requires_grad_(True) for x in inputs]
+        out = render_gaussians(*params, st.valid.to(d),
+                               cpu._kf_w2cs[-1].to(d), cpu.K.to(d),
+                               img_hw=hw, k_per_tile=cpu.cfg.k_per_tile)
+        f = sum((y * torch.from_numpy(w).to(d)).sum() for y, w in zip(
+            (out.color, out.depth, out.alpha), weights))
+        grads = torch.autograd.grad(f, params)
+        outs.append(([y.detach().cpu() for y in out[:3]],
+                     [g.cpu() for g in grads]))
+    return (max(float((a - b).abs().max())
+                for a, b in zip(outs[0][0], outs[1][0])),
+            max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(outs[0][1], outs[1][1])))
+
+
+def _ref_gaussian_track(cpu, scene, dev, perturb):
+    """track_pose on the CPU run's map against the last frame from its GT
+    pose moved 2 cm, on the card and on the CPU (the latter's colours moved
+    by ``perturb``): the largest difference of the two w2c."""
+    from ovo_tpu_torch.slam.gaussian.tracker import track_pose
+
+    fid, image, depth, c2w = scene[len(scene) - 1]
+    c2w = c2w.copy()
+    c2w[0, 3] += 0.02
+    w2c = np.linalg.inv(c2w).astype(np.float32)
+    res = []
+    for d, eps in ((dev, 0.0), (torch.device("cpu"), perturb)):
+        img = image / np.float32(255) + np.float32(eps) * np.random \
+            .default_rng(fid).standard_normal(image.shape).astype(np.float32)
+        st = cpu.state._replace(**{k: v.to(d) for k, v in
+                                   cpu.state.tensors().items()})
+        res.append(track_pose(st, torch.from_numpy(img).to(d),
+                              torch.from_numpy(depth).to(d),
+                              torch.from_numpy(w2c).to(d), cpu.K.to(d),
+                              img_hw=depth.shape, iters=cpu.track_iters,
+                              color_w=cpu.track_color_w,
+                              depth_w=cpu.track_depth_w,
+                              lr_q=cpu.track_lr_q, lr_t=cpu.track_lr_t,
+                              k_per_tile=cpu.cfg.k_per_tile))
+    return float(np.abs(res[0].w2c - res[1].w2c).max())
+
+
+def run_reference_gaussian(dev, perturb: float = 0.0) -> dict:
+    """OVOSemMap with the gaussian_slam backbone (configs/slam/
+    gaussian_slam/replica.yaml's tracking section: odometry init; small
+    mapping knobs, REF_GAUSSIAN) on the run_reference's 12-frame 96 x 160
+    wall of varying depth with the tiny-pe card, on the card (kernels) and
+    on the CPU (plain versions). Held: one render of the CPU run's map
+    (color, depth, alpha within 2e-4; the gradients of a linear functional
+    of them to all five inputs within REF_GAUSSIAN_GRAD of the largest);
+    the frame-0 map's live slots equal; track_pose on one map from one
+    pose within REF_GAUSSIAN_LIMITS["track_pose_m"]; the runs' keyframes
+    and tracked frames equal, live counts, poses and instance counts
+    within REF_GAUSSIAN_LIMITS. ``perturb`` moves the CPU run's mapped
+    colours (and the CPU track_pose's) by that much: run with the card
+    device set to the CPU, it measures the CPU run's own spread."""
+    from ovo_tpu_torch.data.masks import CallableMaskSource
+    from ovo_tpu_torch.mapping.pipeline import OVOSemMap
+    from ovo_tpu_torch.models.clip import CLIPModel
+    from ovo_tpu_torch.models.textregion import TextRegionEmbedder
+
+    scene = WallScene(12, 96, 160, 80.0, 80.0, 79.5, 47.5, seed=1, cell=0.8)
+    cfg = json.loads(json.dumps(REPLICA_CONFIG))
+    gcfg = gaussian_slam_config()
+    cfg["slam"] = gcfg["slam"]
+    for key in ("mapping", "tracking"):
+        cfg[key] = dict(gcfg[key], **REF_GAUSSIAN[key])
+    cfg["semantic"].update(segment_every=2, kf_queue_delay=2, track_th=40,
+                           depth_filter=False)
+    runs, first_maps = {}, {}
+    cpu_model = CLIPModel.random_init("tiny-pe", seed=3, device="cpu")
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model = cpu_model if name == "cpu" else CLIPModel(
+            cpu_model.cfg, copy.deepcopy(cpu_model.visual), d)
+        with tempfile.TemporaryDirectory() as tmp:
+            m = OVOSemMap(json.loads(json.dumps(cfg)), tmp, dataset=scene,
+                          mask_source=CallableMaskSource(
+                              lambda img, fid: scene.masks(fid), 96, d),
+                          embedder=TextRegionEmbedder(model), device=d)
+            bb = m.slam_backbone
+            inner = bb.map
+            eps = perturb if name == "cpu" else 0.0
+
+            def mapped(fd, c2w, inner=inner, eps=eps, bb=bb, name=name):
+                fd = list(fd)
+                fd[1] = fd[1] / np.float32(255) + np.float32(eps) * np.random \
+                    .default_rng(fd[0]).standard_normal(
+                        fd[1].shape).astype(np.float32)
+                inner(fd, c2w)
+                first_maps.setdefault(name, bb.state.valid.cpu().numpy())
+
+            bb.map = mapped
+            m.run()
+        runs[name] = m
+    card, cpu = runs["cuda"].slam_backbone, runs["cpu"].slam_backbone
+    if card.odometer is None or cpu.odometer is None:
+        raise AssertionError("reference_gaussian: no odometry")
+    render_err, grad_err = _ref_gaussian_render(cpu, dev)
+    counts = [int(b.state.valid.sum()) for b in (card, cpu)]
+    frames = sorted(cpu.estimated_c2ws)
+    pose_diff = [float(np.abs(card.estimated_c2ws[k][:3, 3]
+                              - cpu.estimated_c2ws[k][:3, 3]).max())
+                 for k in frames]
+    n_ids = [len(r.ovo.active_ids()) for r in (runs["cuda"], runs["cpu"])]
+    rec = dict(render_max_abs_err=render_err,
+               grad_max_err_of_largest=grad_err,
+               frame0_live=[int(v.sum()) for v in first_maps.values()],
+               track_pose_max_abs_diff=_ref_gaussian_track(cpu, scene, dev,
+                                                           perturb),
+               live_gaussians=counts, pose_abs_diff_m=pose_diff,
+               instances=n_ids, keyframes=sorted(cpu.kfs),
+               k_per_tile=[card.cfg.k_per_tile, cpu.cfg.k_per_tile],
+               pose_error_vs_gt_m=max(
+                   float(np.linalg.norm(c2w[:3, 3] - scene.poses[k][:3, 3]))
+                   for k, c2w in cpu.estimated_c2ws.items()),
+               limits=dict(REF_GAUSSIAN_LIMITS, grad=REF_GAUSSIAN_GRAD),
+               perturb=perturb)
+    lim = REF_GAUSSIAN_LIMITS
+    bad = [render_err > 2e-4, grad_err > REF_GAUSSIAN_GRAD,
+           not np.array_equal(first_maps["cuda"], first_maps["cpu"]),
+           rec["track_pose_max_abs_diff"] > lim["track_pose_m"],
+           sorted(card.estimated_c2ws) != frames or len(frames) < 10,
+           sorted(card.kfs) != sorted(cpu.kfs),
+           abs(counts[0] - counts[1]) > lim["live_share"] * counts[1],
+           max(pose_diff) > lim["pose_m"], min(n_ids) < 3,
+           abs(n_ids[0] - n_ids[1]) > lim["instances_share"] * n_ids[1]]
+    if any(bad):
+        raise AssertionError(f"reference_gaussian: gates {bad}: {rec}")
+    return rec
+
+
 def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
-              image_size=1024, sam_batch=1, sam1=False, orb=False):
+              image_size=1024, sam_batch=1, sam1=False, orb=False,
+              gaussian=False):
     """OVOSemMap on the 680x1200 wall scene, segmenting every 10th frame:
     precomputed-style masks from the scene, or (``live``) the SAM2 Hiera-L
     automatic masks built from the config at ``image_size``, or with
@@ -3015,7 +3413,11 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
     own backbone, the native tracker's poses, on the scene's first
     ``frames`` frames out and back (2 * frames - 1 frames); the ORB tier's
     host reads are the only host syncs allowed in its frame loop, and
-    OrbProbe's gates must hold."""
+    OrbProbe's gates must hold. ``gaussian`` (the gaussian_slice, with
+    ``live``): the Gaussian-SLAM backbone of gaussian_slam_config() on the
+    scene's first ``frames`` frames; its host reads (``splat.read_host``)
+    are the only host syncs allowed in its frame loop, GaussianProbe's
+    gates must hold, and the final map's render is timed."""
     from ovo_tpu_torch.data.masks import CallableMaskSource
     from ovo_tpu_torch.mapping.pipeline import OVOSemMap
     from ovo_tpu_torch.ops import cuda_build
@@ -3028,12 +3430,19 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         tag = "sam1_slice"
     if orb:
         tag = "orb_slice"
+    if gaussian:
+        tag = "gaussian_slice"
     t0 = time.time()
     # the orb_slice goes out along the first half of the 60-frame scene and
     # back, whichever phase built the scene first
     scene = replica_wall_scene(2 * frames if orb else frames)
     if orb:
         scene = out_and_back(scene.head(frames), frames)
+    if gaussian:
+        # the 60-frame wall's first frames (4 cm apart), whichever phase
+        # built the scene first: the tracker starts from the odometry's
+        # guess and a wall built for 11 frames moves 24 cm a frame
+        scene = replica_wall_scene(60).head(frames)
     masks = {fid: scene.masks(fid) for fid in range(0, len(scene), 10)
              if not live}
     t_scene = time.time() - t0
@@ -3041,6 +3450,8 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         cfg = json.loads(json.dumps(REPLICA_CONFIG))
         if orb:
             cfg["slam"] = dict(orb_slam_config(), save_estimated_cam=True)
+        if gaussian:
+            cfg.update(gaussian_slam_config())
         if clip:
             cfg["semantic"]["clip"] = dict(clip)
         # the embedder is built from the config (PE-Core-L14-336, or the
@@ -3059,7 +3470,8 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         sem_map.ovo.mask_source = recorder
         embedder = CountingEmbedder(sem_map.ovo.embedder)
         sem_map.ovo.embedder = embedder
-        probe = OrbProbe(sem_map) if orb else None
+        probe = (OrbProbe(sem_map) if orb else GaussianProbe(sem_map)
+                 if gaussian else None)
         # an earlier slice's map lives in a reference cycle (its patched
         # drain below) until a full collection: free it, so that this run's
         # peak reads its own and no collection falls inside its wall
@@ -3148,7 +3560,8 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
     # host (the reference's skip-on-empty); nothing else may sync
     allowed = (_validity_read_sites() if sam_batch > 1
                else _small_region_sites() if sam1
-               else _orb_sync_sites() if orb else set())
+               else _orb_sync_sites() if orb
+               else _gaussian_sync_sites() if gaussian else set())
     if set(loop_syncs) - allowed:
         raise AssertionError(f"{tag}: host syncs in the frame loop: "
                              f"{collections.Counter(loop_syncs)}")
@@ -3192,6 +3605,21 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
             launches_per_tower_call={
                 k: counts[k] / embedder.tower_calls
                 for k in ("rope_packed_attention", "masked_pool")})
+    if gaussian:
+        record.update(
+            probe.record(scene), **render_times(sem_map.slam_backbone),
+            host_syncs_in_loop_per_frame=len(loop_syncs) / len(scene),
+            launches_per_segmented_keyframe={
+                k: counts[k] / n_seg for k in AMG_LAUNCHES_PER_KF},
+            launches_per_tower_call={
+                k: counts[k] / embedder.tower_calls
+                for k in ("rope_packed_attention", "masked_pool")},
+            mapping={k: cfg["mapping"][k] for k in (
+                "n_gaussians_capacity", "k_per_tile", "iterations",
+                "new_submap_iterations", "new_submap_points_num",
+                "max_seeds", "keyframe_window", "map_every")},
+            tracking={k: cfg["tracking"][k] for k in (
+                "iterations", "odometry_type", "init_err_ratio")})
     if sam_batch > 1:
         record.update(sam_batch=sam_batch, batches=recorder.batches,
                       tower_calls=embedder.tower_calls,
@@ -4124,10 +4552,12 @@ def _profile_summary(prof, wall: float, path: str) -> dict:
 
 def main(argv) -> int:
     """No arguments: every phase. ``--profile PATH [--image-size N |
-    --crop | --cli | --sam1 | --orb]``: only gpu, build and the amg_slice
+    --crop | --cli | --sam1 | --orb | --gaussian]``: only gpu, build and
+    the amg_slice
     (or, at 1280, the amg1280_slice; with ``--crop`` the crop_slice; with
     ``--cli`` the cli, its ``--run`` loop traced; with ``--sam1`` the
-    sam1_slice; with ``--orb`` the orb_slice)
+    sam1_slice; with ``--orb`` the orb_slice; with ``--gaussian`` the
+    gaussian_slice)
     three times: untraced, then with the card's
     activity traced by torch.profiler (the busy share is read within that
     run, the kernel table written to PATH), then untraced again."""
@@ -4177,6 +4607,9 @@ def main(argv) -> int:
             kw, tag = dict(live=True, frames=30, sam1=True), "sam1_slice"
         if "--orb" in argv:
             kw, tag = dict(live=True, frames=30, orb=True), "orb_slice"
+        if "--gaussian" in argv:
+            kw, tag = dict(live=True, frames=GAUSSIAN_FRAMES,
+                           gaussian=True), "gaussian_slice"
         emit(tag, **run_slice(dev, **kw)[0])
         emit("profile", **run_slice(dev, profile_path, **kw)[0])
         emit(tag, **run_slice(dev, **kw)[0])
@@ -4292,6 +4725,10 @@ def main(argv) -> int:
     emit("sam1_slice", **run_slice(dev, live=True, frames=30, sam1=True)[0])
     torch.cuda.empty_cache()
     emit("orb_slice", **run_slice(dev, live=True, frames=30, orb=True)[0])
+    torch.cuda.empty_cache()
+    emit("reference_gaussian", **run_reference_gaussian(dev))
+    emit("gaussian_slice", **run_slice(dev, live=True, frames=GAUSSIAN_FRAMES,
+                                       gaussian=True)[0])
     torch.cuda.empty_cache()
     emit("checkpoint", **run_checkpoint(dev))
     torch.cuda.empty_cache()

@@ -21,12 +21,13 @@ with ``torch.profiler`` (CUDA activity on the card, CPU activity on the
 CPU) and writes a Chrome trace there: PyTorch's format, where the JAX
 package writes ``jax.profiler``'s.
 
-Backbones: ``vanilla`` (GT poses) and ``orbslam*`` (the native tracker's
-poses, mapping on its keyframes); when a backbone reports a big change
+Backbones: ``vanilla`` (GT poses), ``orbslam*`` (the native tracker's
+poses, mapping on its keyframes) and ``gaussian_slam`` (poses by rendering
+a gaussian map, ``slam/gaussian``); when a backbone reports a big change
 after mapping a frame, the semantic map follows it through
 ``SemanticMapper.update_map`` and the seconds it took count in the
-frame's ``spf``. The viewer stream and ``gaussian_slam`` come with later
-slices and raise here.
+frame's ``spf``. The viewer stream comes with a later slice and raises
+here.
 """
 from __future__ import annotations
 

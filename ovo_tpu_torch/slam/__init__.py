@@ -2,9 +2,13 @@ from .vanilla import VanillaMapper  # noqa: F401
 
 
 def get_slam_backbone(config, dataset, cam_intrinsics, device):
-    """Backbone factory: the GT-pose ``vanilla`` backbone or the native
-    tracker's ``orbslam*`` tier; ``gaussian_slam`` is not ported yet."""
+    """Backbone factory: the GT-pose ``vanilla`` backbone, the native
+    tracker's ``orbslam*`` tier or the ``gaussian_slam`` tier."""
     backbone = config["slam"].get("slam_module", "vanilla")
+    if backbone == "gaussian_slam":
+        from .gaussian import WrapperGaussianSLAM
+
+        return WrapperGaussianSLAM(config, cam_intrinsics, device=device)
     if backbone.startswith("orbslam"):
         from .orbslam import WrapperORBSLAM
 

@@ -7,7 +7,9 @@ fused_mlp_block), the decoder's other routes' B7 (cross_i2t_proj), B8
 (limits beside their tests below) against their plain PyTorch versions, on
 a CUDA card; B2, B3 and B4 also at SAM1's 7 decoder tokens, and the SAM1
 AMG program card against CPU; the ORB tier's map rebuild
-(``_apply_block_deltas``) and semantic loop closure, card against CPU.
+(``_apply_block_deltas``) and semantic loop closure, card against CPU;
+the Gaussian-SLAM tier's splatter (forward and backward) and one map and
+track step of its backbone, card against CPU.
 These tests skip without one (the kernels have no
 CPU mode). The file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
@@ -1058,3 +1060,98 @@ def test_semantic_loop_closure_card_matches_cpu(cuda_device):
             assert torch.equal(a, b), f.name
     # instance 6 was minted with no points: removed on both
     assert not bool(got_store.active[6]) and bool(got_store.active[0])
+
+
+def _splat_scene(seed=12, n=5000):
+    """Gaussians over a wall of varying depth, 96 x 160 view: tiles hold
+    more than K = 32 of them (truncation), depths tie nowhere."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2.0, 2.0, n)
+    y = rng.uniform(-1.2, 1.2, n)
+    xyz = np.stack([x, y, 3.0 + 0.3 * np.sin(1.3 * x) * np.cos(0.9 * y)],
+                   -1).astype(np.float32)
+    return [xyz, rng.uniform(0.01, 0.05, (n, 3)).astype(np.float32),
+            rng.standard_normal((n, 4)).astype(np.float32),
+            rng.uniform(0.2, 0.95, n).astype(np.float32),
+            rng.uniform(0, 1, (n, 3)).astype(np.float32)]
+
+
+@pytest.mark.cuda
+def test_gaussian_render_card_matches_cpu(cuda_device):
+    """The splatter forward and backward on the card against the CPU:
+    color, depth, alpha and trunc_residual within 2e-4, radii and the pair
+    total equal, the gradients of a linear functional of the render to all
+    five inputs within 1e-4 of the largest (the card adds the gathers'
+    gradients with atomics, in another order); a pair buffer with room to
+    spare renders the same."""
+    from ovo_tpu_torch.ops.splat import pair_bucket, render_gaussians
+
+    inputs = _splat_scene()
+    n = inputs[0].shape[0]
+    K = np.array([[80.0, 0, 79.5], [0, 80.0, 47.5], [0, 0, 1]], np.float32)
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[:3, 3] = [0.1, -0.05, 0.0]
+    rng = np.random.default_rng(0)
+    weights = [rng.standard_normal((96, 160) + s).astype(np.float32)
+               for s in ((3,), (), ())]
+    res = []
+    for d, cap in ((torch.device("cpu"), None), (cuda_device, None),
+                   (cuda_device, "bucket")):
+        params = [torch.from_numpy(a).to(d).requires_grad_(True)
+                  for a in inputs]
+        if cap == "bucket":
+            cap = pair_bucket(int(res[0][0].n_pairs))
+        out = render_gaussians(*params, torch.ones(n, dtype=torch.bool,
+                                                   device=d),
+                               torch.from_numpy(w2c).to(d),
+                               torch.from_numpy(K).to(d), img_hw=(96, 160),
+                               k_per_tile=32, pair_cap=cap)
+        f = sum((y * torch.from_numpy(w).to(d)).sum() for y, w in zip(
+            (out.color, out.depth, out.alpha), weights))
+        res.append((out, [g.cpu() for g in torch.autograd.grad(f, params)]))
+    (ref, ref_g) = res[0]
+    assert float(ref.trunc_residual) > 0
+    for out, grads in res[1:]:
+        for k in ("color", "depth", "alpha", "trunc_residual"):
+            torch.testing.assert_close(getattr(out, k).detach().cpu(),
+                                       getattr(ref, k).detach(), atol=2e-4,
+                                       rtol=0)
+        assert torch.equal(out.radii.detach().cpu(), ref.radii.detach())
+        assert int(out.n_pairs) == int(ref.n_pairs)
+        for a, b in zip(grads, ref_g):
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_gaussian_backbone_map_and_track_card_matches_cpu(cuda_device):
+    """WrapperGaussianSLAM on the card against the CPU on the curved wall:
+    GT poses for frames 0 and 1, frame 0 mapped (seeded before any render:
+    the same live slots and ids), frame 2 tracked by rendering from the
+    const-speed guess (5 pose iterations on the map after 10 mapping
+    iterations): poses within 5 mm (the map's Adam run parts the two
+    devices' parameters at rounding level, see chip_smoke.REF_GAUSSIAN),
+    and the semantic view's count equal."""
+    from orb_scene import CurvedWallDataset
+
+    from ovo_tpu_torch.slam.gaussian.backbone import WrapperGaussianSLAM
+
+    ds = CurvedWallDataset(4)
+    cfg = {"dataset_name": "synthetic",
+           "mapping": {"n_gaussians_capacity": 1 << 13, "iterations": 5,
+                       "new_submap_iterations": 10, "max_seeds": 1024,
+                       "new_submap_points_num": 4096, "k_per_tile": 32},
+           "tracking": {"iterations": 5, "odometry_type": "const_speed"}}
+    backbones = [WrapperGaussianSLAM(dict(cfg), ds.intrinsics, device=d)
+                 for d in ("cpu", cuda_device)]
+    for b in backbones:
+        for f in range(3):
+            b.track_camera(list(ds[f]))
+            if f == 0:
+                b.map(list(ds[0]), b.get_c2w(0))
+                assert b.state.xyz.device.type == b.device.type
+    cpu, card = backbones
+    assert torch.equal(card.state.ids.cpu(), cpu.state.ids)
+    assert torch.equal(card.state.valid.cpu(), cpu.state.valid)
+    assert int(card.get_map().count) == int(cpu.get_map().count) > 1000
+    assert np.abs(card.get_c2w(2) - cpu.get_c2w(2)).max() <= 5e-3
+    assert np.isfinite(card.get_c2w(2)).all()

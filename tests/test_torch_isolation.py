@@ -8,7 +8,8 @@ and cv2 blocked; its entry points refuse to fall back to the CPU on their
 own. The subprocess also builds a SAM1 mask source and loads a SAM1, an
 open_clip and a merger checkpoint, and drives the ORB backbone (the native
 tracker built from the port's own copy, loop closures through
-``update_map``). No string in the port's code names a path into the JAX
+``update_map``), builds the Gaussian-SLAM backbone and renders through its
+splatter with a gradient. No string in the port's code names a path into the JAX
 package."""
 import ast
 import os
@@ -233,6 +234,24 @@ m = OVOSemMap(orb, {out!r} + "_orb", dataset=CurvedWallDataset(40),
 m.run()
 assert m.slam_backbone.last_big_change >= 1
 assert int(m.slam_backbone.get_map().count) > 1000
+# the Gaussian-SLAM tier: its modules import, one render and its gradient
+import torch
+from ovo_tpu_torch.slam import get_slam_backbone
+from ovo_tpu_torch.slam.gaussian import losses, mapper, odometer, tracker
+from ovo_tpu_torch.ops import knn, splat
+gs = get_slam_backbone({{"slam": {{"slam_module": "gaussian_slam"}},
+                        "mapping": {{"n_gaussians_capacity": 64}},
+                        "tracking": {{"gt_camera": True}}}}, None,
+                       np.array([[40.0, 0, 16], [0, 40.0, 12], [0, 0, 1]],
+                                np.float32), "cpu")
+xyz = torch.rand(64, 3) + torch.tensor([-0.5, -0.5, 2.0])
+xyz.requires_grad_(True)
+out = splat.render_gaussians(xyz, torch.full((64, 3), 0.05),
+                             gs.state.quats, torch.full((64,), 0.5),
+                             torch.rand(64, 3), torch.ones(64, dtype=bool),
+                             torch.eye(4), gs.K, img_hw=(24, 32))
+out.color.sum().backward()
+assert bool(xyz.grad.isfinite().all()) and float(out.alpha.max()) > 0
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "yaml", "cv2")
                for m in sys.modules)
 print("ISOLATED-RUN-OK")

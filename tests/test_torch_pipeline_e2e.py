@@ -128,11 +128,12 @@ def test_pipeline_recorded_descriptors_match_jax(tmp_path):
 
 
 def test_pipeline_rejects_unported_options(tmp_path):
-    """The viewer stream, the Gaussian-SLAM backbone and the multi-device
-    keys still raise; the ORB-SLAM backbone (tests/test_torch_orbslam.py),
-    the profiler hook, map restore, SAM micro-batching and the debug
-    restore are ported (tests/test_torch_orchestrator.py) and construct;
-    the ORB backbone runs two frames."""
+    """The viewer stream and the multi-device keys still raise; the
+    ORB-SLAM backbone (tests/test_torch_orbslam.py), the Gaussian-SLAM
+    backbone (tests/test_torch_gaussian_pipeline.py), the profiler hook,
+    map restore, SAM micro-batching and the debug restore are ported
+    (tests/test_torch_orchestrator.py) and construct; the ORB backbone runs
+    two frames."""
     cfg = make_config(16)
     embeds = class_embeddings(16)
     kw = dict(mask_source=CallableMaskSource(synthetic_mask_fn, 16, "cpu"),
@@ -143,10 +144,6 @@ def test_pipeline_rejects_unported_options(tmp_path):
     bad["vis"] = {"stream": True}
     with pytest.raises(NotImplementedError):
         OVOSemMap(bad, tmp_path / "vis", **kw)
-    bad = copy.deepcopy(cfg)
-    bad["slam"]["slam_module"] = "gaussian_slam"
-    with pytest.raises(NotImplementedError):
-        OVOSemMap(bad, tmp_path / "gs", **kw)
     orb = copy.deepcopy(cfg)
     orb["slam"]["slam_module"] = "orbslam"
     pipe = OVOSemMap(orb, tmp_path / "orb", **dict(
