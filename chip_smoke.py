@@ -90,6 +90,13 @@ non-zero and prints no result):
              frames: the trunk once per flush, one tower call per pair;
              launches per flush; the only host syncs in the frame loop are
              the flushes' validity reads
+  multidevice_slice  the batch_slice with parallel {point_shard,
+             shard_query, dp_embed} in a world of one on nccl (the process
+             joins a one-rank group): the map, active ids, store and
+             descriptors bit-equal to the batch_slice's, kf/s, collectives
+             per keyframe; then python -m ovo_tpu_torch.parallel.dryrun with
+             no arguments (nccl, a rank a card: a world of one here; wider
+             worlds are held on the CPU by tests/test_torch_parallel.py)
   sam1_slice the amg_slice's first 30 frames with SAM1 (sam_version "",
              sam_encoder vit_h: the ViT-det at full width, 1024^2, seeded
              random bf16 weights, gates at 0, min_mask_region_area 100):
@@ -143,6 +150,14 @@ non-zero and prints no result):
              merger model.pt (load_merger); each model's outputs bit-equal
              to the same tree's through from_jax_params; bytes, write and
              load-and-convert seconds
+  merger_train  the learned merger's train step at full width (1152, depth
+             5, 8 heads, head MLP 512; 1024 instances x 3 clips; Adam,
+             MERGER_TRAIN): two steps on the card against the CPU (step
+             1's loss within MERGER_LOSS_TOL, its gradients within
+             MERGER_GRAD_REL of their norm, step 2's loss within
+             MERGER_STEP2_TOL), then 20 steps; ms per step, peak memory,
+             loss first and last; no kernel (head size 144 takes the plain
+             attention route)
   reference_crop  the crop ``hovsg`` embedder on a SigLIP-structured card
              built here (no class token, attention pooling, 224^2 / 14 = 256
              tokens, so the tower takes kernel B10; bidirectional text
@@ -159,6 +174,13 @@ non-zero and prints no result):
              tower, 64 tokens: 27 B2 launches per class) and over the
              slice's map (PE's causal text tower: the plain route, no
              kernel); similarities finite and in [0, 1] for SigLIP
+  viewer     the slice's precomputed masks on the scene's first 21 frames
+             with vis.stream true: a spawned headless viewer, one scripted
+             query; the exports written, the final clouds equal to the
+             final map's bytes, the answer equal to
+             Visualizer.query_values_per_point called directly, no host
+             sync in the frame loop but the stream's reads and the query's;
+             _close_stream's wall
   reference_cli  run_eval.main --run --segment --eval on a small PNG scene
              (64x96, 8 frames, hiera_test, the tiny-pe card, gates at 0) on
              the card under OVO_FUSED_BLOCK=1 (B12a / B12b) and with
@@ -166,7 +188,9 @@ non-zero and prints no result):
              ids, descriptors within cosine 1e-4, labels equal where the
              instance's top-2 margin is above 1e-4, equal metrics when the
              labels are equal; with profile_trace set, each run writes one
-             Chrome trace, the card's naming the port's kernels
+             Chrome trace, the card's naming the port's kernels; then
+             --parallel_scenes 2 on two such scenes (a spawned process a
+             scene on the card) against the serial run
   reference_orb  run_eval.main --run --segment --eval on a 64x96 PNG
              scene of 23 frames out and back (hiera_test, tiny-pe, gates at
              0) on configs/ovo.yaml's own orbslam backbone (tracker gates
@@ -3400,7 +3424,7 @@ def run_reference_gaussian(dev, perturb: float = 0.0) -> dict:
 
 def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
               image_size=1024, sam_batch=1, sam1=False, orb=False,
-              gaussian=False):
+              gaussian=False, parallel=None):
     """OVOSemMap on the 680x1200 wall scene, segmenting every 10th frame:
     precomputed-style masks from the scene, or (``live``) the SAM2 Hiera-L
     automatic masks built from the config at ``image_size``, or with
@@ -3417,10 +3441,14 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
     ``live``): the Gaussian-SLAM backbone of gaussian_slam_config() on the
     scene's first ``frames`` frames; its host reads (``splat.read_host``)
     are the only host syncs allowed in its frame loop, GaussianProbe's
-    gates must hold, and the final map's render is timed."""
+    gates must hold, and the final map's render is timed. ``parallel`` (the
+    multidevice_slice, with ``sam_batch`` 2): the semantic config's
+    ``parallel`` keys, in whatever world the process has joined; the
+    collectives are counted per keyframe."""
     from ovo_tpu_torch.data.masks import CallableMaskSource
     from ovo_tpu_torch.mapping.pipeline import OVOSemMap
     from ovo_tpu_torch.ops import cuda_build
+    from ovo_tpu_torch.parallel import mesh
 
     tag = (("amg_slice" if image_size == 1024 else f"amg{image_size}_slice")
            if live else ("crop_slice" if clip else "slice"))
@@ -3432,6 +3460,8 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         tag = "orb_slice"
     if gaussian:
         tag = "gaussian_slice"
+    if parallel:
+        tag = "multidevice_slice"
     t0 = time.time()
     # the orb_slice goes out along the first half of the 60-frame scene and
     # back, whichever phase built the scene first
@@ -3454,6 +3484,8 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
             cfg.update(gaussian_slam_config())
         if clip:
             cfg["semantic"]["clip"] = dict(clip)
+        if parallel:
+            cfg["semantic"]["parallel"] = dict(parallel)
         # the embedder is built from the config (PE-Core-L14-336, or the
         # clip section given, seeded random weights, on the card); so is the
         # live mask source
@@ -3499,7 +3531,8 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
         if probe is not None:
             probe.__enter__()
         torch.cuda.set_sync_debug_mode("warn")
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings(record=True) as caught, \
+                mesh.counting_collectives() as collectives:
             warnings.simplefilter("always")
             sem_map.run()
         torch.cuda.set_sync_debug_mode(0)
@@ -3620,6 +3653,12 @@ def run_slice(dev, profile_path=None, live=False, frames=60, clip=None,
                 "max_seeds", "keyframe_window", "map_every")},
             tracking={k: cfg["tracking"][k] for k in (
                 "iterations", "odometry_type", "init_err_ratio")})
+    if parallel:
+        record.update(parallel=parallel, collectives=dict(collectives),
+                      collectives_per_keyframe={
+                          k: v / ovo.kf_id for k, v in collectives.items()})
+    elif collectives:
+        raise AssertionError(f"{tag}: collectives {dict(collectives)}")
     if sam_batch > 1:
         record.update(sam_batch=sam_batch, batches=recorder.batches,
                       tower_calls=embedder.tower_calls,
@@ -4550,6 +4589,460 @@ def _profile_summary(prof, wall: float, path: str) -> dict:
                                     for k, (ms, n) in rows[:15]])
 
 
+# ---------------------------------------------------------------------------
+# the last modules: the merger's train step, the multi-process paths and the
+# viewer (no TPU kernel lies on any of these paths)
+# ---------------------------------------------------------------------------
+
+# the learned merger at the paper's width (SigLIP's 1152, 8 heads of 144,
+# depth 5, head MLP 512), 1024 instances x 3 clips learning to pick the
+# middle clip
+MERGER_TRAIN = dict(d_model=1152, depth=5, n_heads=8, mlp_hidden=512,
+                    batch=1024, steps=20, lr=1e-4)
+# the card against the CPU, f32 sums in another order. Step 1's loss (a
+# mean of 1024 cosines) within 1e-5 (measured 6e-8 on an H100). Its
+# gradients sum 3072 token products with much cancellation: a float32
+# evaluation of them is itself determined only to 2.2e-4 of their L2 norm
+# (the CPU's float32 against float64, batch 256), so they are held to 1e-3
+# of it (relative L2). The loss after the first update within 2e-5: an
+# update differs by 2 lr where a gradient sits within float32 noise of
+# zero (the CPU's float32 and float64 runs: 2.0e-6 apart there)
+MERGER_LOSS_TOL = 1e-5
+MERGER_GRAD_REL = 1e-3
+MERGER_STEP2_TOL = 2e-5
+
+
+def run_merger_train(dev) -> dict:
+    """The merger's train step (``models/merger.make_train_step``: autograd
+    through the forward, torch.optim.Adam) at full width: two steps on the
+    card against the same steps on the CPU (step 1's loss and gradients,
+    the loss after the first update), then MERGER_TRAIN's steps on the
+    card; ms per step (CUDA events, median of steps 2 on), peak memory, the
+    loss first and last. Attention has head size 144, so it takes the plain
+    route: no kernel launches."""
+    from ovo_tpu_torch.models.merger import init_merger, make_train_step
+    from ovo_tpu_torch.ops import cuda_build
+
+    c = MERGER_TRAIN
+    params = init_merger(torch.Generator(device=dev).manual_seed(0),
+                         d_model=c["d_model"], depth=c["depth"],
+                         n_heads=c["n_heads"], mlp_hidden=c["mlp_hidden"],
+                         device=dev)
+    clips_cpu = torch.randn((c["batch"], 3, c["d_model"]),
+                            generator=torch.Generator().manual_seed(1))
+    grads = {}
+
+    def keep(tag):
+        def hook(ps):
+            if tag not in grads:
+                grads[tag] = [p.grad.detach().cpu().clone().double()
+                              for p in ps.parameters()]
+        return hook
+
+    cpu_params = copy.deepcopy(params).cpu()
+    cpu_step = make_train_step(cpu_params, c["lr"], c["n_heads"],
+                               grad_hook=keep("cpu"))
+    t0 = time.time()
+    cpu_losses = [float(cpu_step(clips_cpu, clips_cpu[:, 1]))
+                  for _ in range(2)]
+    cpu_step_s = (time.time() - t0) / 2
+    clips = clips_cpu.to(dev)
+    step = make_train_step(params, c["lr"], c["n_heads"],
+                           grad_hook=keep("card"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_build.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(c["steps"]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(clips, clips[:, 1]))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    counts = cuda_build.launch_counts()
+    losses = [float(x) for x in losses]
+    diff2 = sum(float(((a - b) ** 2).sum())
+                for a, b in zip(grads["card"], grads["cpu"]))
+    norm2 = sum(float((b ** 2).sum()) for b in grads["cpu"])
+    grad_rel = (diff2 / norm2) ** 0.5
+    grad_max = max(float((a - b).abs().max())
+                   for a, b in zip(grads["card"], grads["cpu"]))
+    loss_err = abs(losses[0] - cpu_losses[0])
+    step2_err = abs(losses[1] - cpu_losses[1])
+    if not (loss_err <= MERGER_LOSS_TOL and grad_rel <= MERGER_GRAD_REL
+            and step2_err <= MERGER_STEP2_TOL):
+        raise AssertionError(
+            f"merger_train: card vs CPU: loss {loss_err}, gradients "
+            f"{grad_rel} of their norm, loss after the update {step2_err}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"merger_train: losses {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"merger_train: kernels launched: {counts}")
+    return dict(config=c, parameters=sum(p.numel()
+                                         for p in params.parameters()),
+                loss_first=losses[0], loss_last=losses[-1],
+                ms_per_step=statistics.median(times[1:]),
+                first_step_ms=times[0], peak_memory_gb=peak,
+                cpu_step_s=cpu_step_s, step1_loss_err=loss_err,
+                step1_grad_rel_l2=grad_rel, step1_grad_max_abs_err=grad_max,
+                step2_loss_err=step2_err, launches={})
+
+
+def map_snapshot(sem_map) -> dict:
+    """A finished run's map, instances, store and per-keyframe descriptors
+    on the host."""
+    import dataclasses
+
+    st = sem_map.slam_backbone.get_map()
+    n = int(st.count)
+    ovo = sem_map.ovo
+    return dict(
+        obj_ids=st.obj_ids[:n].cpu().numpy(),
+        points=st.points[:n].cpu().numpy(), active=ovo.active_ids(),
+        store={f.name: getattr(ovo.store, f.name).cpu().numpy()
+               for f in dataclasses.fields(ovo.store)},
+        descs={k: tuple(t.cpu().numpy() for t in v)
+               for k, v in ovo.kf_descriptors.items()})
+
+
+def snapshot_diff(a: dict, b: dict) -> dict:
+    """Integer entries that differ between two snapshots (map ids, points,
+    active ids, the store's integer fields, the descriptor records' ids and
+    keeps) and the largest descriptor difference."""
+    def ne(x, y):
+        return int(np.size(x) + np.size(y)) if np.shape(x) != np.shape(y) \
+            else int((x != y).sum())
+
+    ints = ne(a["obj_ids"], b["obj_ids"]) + ne(a["points"], b["points"]) \
+        + ne(a["active"], b["active"])
+    flt = 0.0
+    for k, x in a["store"].items():
+        if x.dtype.kind == "f" and x.shape == b["store"][k].shape:
+            flt = max(flt, float(np.abs(x - b["store"][k]).max(initial=0)))
+        else:
+            ints += ne(x, b["store"][k])
+    if sorted(a["descs"]) != sorted(b["descs"]):
+        ints += 1
+    for k in set(a["descs"]) & set(b["descs"]):
+        (i1, d1, k1), (i2, d2, k2) = a["descs"][k], b["descs"][k]
+        ints += ne(i1, i2) + ne(k1, k2)
+        flt = max(flt, float(np.abs(d1 - d2).max(initial=0))
+                  if d1.shape == d2.shape else np.inf)
+    return dict(int_mismatches=ints, desc_max_abs=flt)
+
+
+MULTIDEVICE_PARALLEL = {"point_shard": True, "shard_query": True,
+                        "dp_embed": True}
+
+
+def run_multidevice(dev, batch: dict) -> dict:
+    """The batch_slice with ``parallel`` MULTIDEVICE_PARALLEL in a world of
+    one on nccl (the process joins a one-rank default group): the instance
+    map, active ids, store and descriptors bit-equal to the batch_slice's
+    run (``batch``: its map_snapshot). Then ``python -m
+    ovo_tpu_torch.parallel.dryrun`` as a user runs it, with no arguments:
+    nccl, a rank a card, so a world of one (one card holds no wider nccl
+    world)."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from ovo_tpu_torch.parallel.mesh import init_world
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world("nccl", 0, 1, f"file://{tmp}/init")
+        try:
+            # the communicator is made by the first collective, before the
+            # run
+            dist.all_reduce(torch.zeros(1, device=dev))
+            torch.cuda.synchronize()
+            record, sem_map = run_slice(dev, live=True, frames=30,
+                                        sam_batch=2,
+                                        parallel=MULTIDEVICE_PARALLEL)
+            snap = map_snapshot(sem_map)
+            res = sem_map.ovo.classify_instances(QUERY_CLASSES,
+                                                 QUERY_TEMPLATE)
+        finally:
+            dist.destroy_process_group()
+    del sem_map
+    diff = snapshot_diff(snap, batch)
+    record.update(vs_batch_slice=diff, classified=int(
+        (res["classes"] >= 0).sum()), mesh=[1, 1], backend="nccl")
+    if diff["int_mismatches"] or diff["desc_max_abs"]:
+        raise AssertionError(f"multidevice_slice: differs from the "
+                             f"batch_slice by {diff}")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ovo_tpu_torch.parallel.dryrun"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    dry = json.loads(proc.stdout.strip().splitlines()[-1])
+    if (dry["backend"], dry["world"], dry["ranks_ok"]) != ("nccl", 1, 1):
+        raise AssertionError(f"dryrun's defaults ran {dry}")
+    record["dryrun"] = dict(dry, seconds=time.time() - t0)
+    return record
+
+
+# the last frame segments, so the last streamed map is the final map
+VIEWER_FRAMES = 21
+VIEWER_QUERY = "chair"
+
+
+def _pipeline_read_sites(fn) -> set:
+    """The lines of ``fn`` (a host read of ``mapping/pipeline.py``:
+    ``stream_rows`` for a streamed frame, ``live_obj_ids`` for a query), as
+    the sync report names them."""
+    import inspect
+
+    lines, first = inspect.getsourcelines(fn)
+    return {f"mapping/pipeline.py:{n}"
+            for n in range(first, first + len(lines))}
+
+
+class _RecordingPipe:
+    """The mapper's end of the query pipe; ``on_send`` sees each answer
+    before it goes out."""
+
+    def __init__(self, conn, on_send):
+        self.conn, self.on_send = conn, on_send
+
+    def poll(self, timeout=0.0):
+        return self.conn.poll(timeout)
+
+    def recv(self):
+        return self.conn.recv()
+
+    def send(self, vals):
+        self.on_send(vals)
+        self.conn.send(vals)
+
+
+def run_viewer(dev) -> dict:
+    """The precomputed-mask slice (PE-Core-L14-336, 2^21-point map) on the
+    scene's first VIEWER_FRAMES frames with ``vis.stream: true``: a spawned
+    headless viewer (``viz/visualizer.stream_pcd``) takes every segment
+    step's map and issues one scripted query (VIEWER_QUERY). The exports
+    written; the final instance and RGB clouds equal to the final map's,
+    byte for byte; the answered values equal to
+    ``Visualizer.query_values_per_point`` called directly on the same map;
+    the only host syncs in the frame loop, besides the query's, the stream's
+    reads (``stream_rows``); the wall of ``_close_stream``."""
+    from pathlib import Path
+
+    from ovo_tpu_torch.data.masks import CallableMaskSource
+    from ovo_tpu_torch.mapping.pipeline import (OVOSemMap, live_obj_ids,
+                                                stream_rows)
+    from ovo_tpu_torch.viz import visualizer as viz
+
+    scene = replica_wall_scene(VIEWER_FRAMES)
+    masks = {fid: scene.masks(fid) for fid in range(0, len(scene), 10)}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = json.loads(json.dumps(REPLICA_CONFIG))
+        cfg["vis"] = {"stream": True, "show_stream": False}
+        sem_map = OVOSemMap(cfg, tmp, dataset=scene, device=dev,
+                            mask_source=CallableMaskSource(
+                                lambda img, fid: masks[fid], 96, dev))
+        sem_map.enable_stream(spawn_process=True, queries=[VIEWER_QUERY])
+        served, query_spans, streamed = [], [], []
+
+        def on_send(vals):
+            # the direct call's own reads stay out of the query's count
+            torch.cuda.set_sync_debug_mode(0)
+            obj = live_obj_ids(sem_map.slam_backbone.get_map())
+            served.append((np.asarray(vals), viz.Visualizer(
+                sem_map.ovo).query_values_per_point(obj, VIEWER_QUERY)))
+            torch.cuda.set_sync_debug_mode("warn")
+
+        sem_map.query_pipe = _RecordingPipe(sem_map.query_pipe, on_send)
+        serve, close, put, drain = (
+            sem_map._serve_stream_query, sem_map._close_stream,
+            sem_map.pcd_queue.put, sem_map.ovo.complete_semantic_info)
+        # the frame loop ends where the run's last drain starts (a query
+        # drains the queue too, inside its span)
+        loop_end, serving = [], []
+
+        def timed_serve(*a, **k):
+            n0, s0 = len(caught), len(served)
+            serving.append(True)
+            serve(*a, **k)
+            serving.pop()
+            if len(served) > s0:
+                query_spans.append((n0, len(caught)))
+
+        def marked_drain():
+            if not serving and not loop_end:
+                loop_end.append(len(caught))
+            drain()
+
+        close_s = []
+
+        def timed_close():
+            t0 = time.time()
+            close()
+            close_s.append(time.time() - t0)
+
+        def counted_put(item):
+            if item is not None:
+                streamed.append(len(item[0]))
+            put(item)
+
+        sem_map._serve_stream_query = timed_serve
+        sem_map._close_stream = timed_close
+        sem_map.pcd_queue.put = counted_put
+        sem_map.ovo.complete_semantic_info = marked_drain
+        torch.cuda.synchronize()
+        t0 = time.time()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sem_map.run()
+        torch.cuda.set_sync_debug_mode(0)
+        wall = time.time() - t0
+        out = Path(tmp) / "stream_out"
+        names = sorted(p.name for p in out.glob("*.ply"))
+        st = sem_map.slam_backbone.get_map()
+        pts, obj, cols = stream_rows(st)
+        viz.write_ply(Path(tmp) / "inst.ply", pts, viz.instance_colors(obj))
+        viz.write_ply(Path(tmp) / "rgb.ply", pts, cols)
+        same_inst = (out / "stream_final_instances.ply").read_bytes() == \
+            (Path(tmp) / "inst.ply").read_bytes()
+        same_rgb = (out / "stream_final_rgb.ply").read_bytes() == \
+            (Path(tmp) / "rgb.ply").read_bytes()
+        err = (out / "viewer_err.txt").read_text() \
+            if (out / "viewer_err.txt").exists() else None
+    in_query = {i for a, b in query_spans for i in range(a, b)}
+
+    def site(w):
+        return f"{w.filename.split('ovo_tpu_torch/')[-1]}:{w.lineno}"
+
+    loop_syncs = [site(w) for i, w in enumerate(caught[:loop_end[0]])
+                  if "synchroniz" in str(w.message) and i not in in_query]
+    # the query reads of the map only its ids (``live_obj_ids``)
+    query_map_reads = [site(caught[i]) for i in sorted(in_query)
+                       if "synchroniz" in str(caught[i].message)
+                       and site(caught[i]).startswith("mapping/pipeline.py")]
+    want = {"stream_final_instances.ply", "stream_final_rgb.ply",
+            "stream_frustum.ply",
+            f"stream_query_{VIEWER_QUERY}_query.ply"}
+    if err or not want <= set(names):
+        raise AssertionError(f"viewer: exports {names}, viewer error {err}")
+    if not (same_inst and same_rgb):
+        raise AssertionError("viewer: the streamed final map differs from "
+                             "the map")
+    if len(served) != 1 or not np.array_equal(*served[0]):
+        raise AssertionError(f"viewer: {len(served)} queries answered, "
+                             f"values equal to the direct call: "
+                             f"{[np.array_equal(*s) for s in served]}")
+    if set(loop_syncs) - _pipeline_read_sites(stream_rows):
+        raise AssertionError(f"viewer: host syncs in the frame loop: "
+                             f"{collections.Counter(loop_syncs)}")
+    if set(query_map_reads) - _pipeline_read_sites(live_obj_ids):
+        raise AssertionError(f"viewer: the query's map reads: "
+                             f"{collections.Counter(query_map_reads)}")
+    return dict(frames=len(scene), keyframes=sem_map.ovo.kf_id,
+                seconds=wall, keyframes_per_s=sem_map.ovo.kf_id / wall,
+                streamed_frames=len(streamed), streamed_points=streamed,
+                map_points=len(pts), exports=names,
+                query_points=len(served[0][0]),
+                query_max=float(served[0][0].max()),
+                host_syncs_in_loop=len(loop_syncs),
+                host_syncs_per_streamed_frame=len(loop_syncs)
+                / max(len(streamed), 1),
+                query_syncs=len(in_query),
+                query_map_reads=len(query_map_reads),
+                close_stream_s=close_s[0])
+
+
+def _reference_cli_parallel() -> dict:
+    """``--parallel_scenes 2`` on two 64x96 scenes (the reference_cli's
+    config, the factory's seeded weights on the card in every process)
+    against the serial run: equal points and object ids per scene, labels
+    equal where the instance's top-2 margin is above 1e-4, equal metrics
+    when the labels are equal; each run's wall."""
+    import os
+    from pathlib import Path
+
+    from ovo_tpu_torch.eval.transfer import match_labels_to_vtx
+    from ovo_tpu_torch.run_eval import load_representation
+    from ovo_tpu_torch.utils import io as io_utils
+    from ovo_tpu_torch.utils import yaml_subset
+
+    cam = REFERENCE_CLI["cam"]
+    scenes = {"smoke_par0": WallScene(8, cam["H"], cam["W"], cam["fx"],
+                                      cam["fy"], cam["cx"], cam["cy"], seed=3,
+                                      cell=0.8),
+              "smoke_par1": WallScene(6, cam["H"], cam["W"], cam["fx"],
+                                      cam["fy"], cam["cx"], cam["cy"], seed=6,
+                                      cell=0.8)}
+    cwd, out = os.getcwd(), {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, wall in scenes.items():
+            write_replica_scene(tmp, name, wall, gt_stride=1)
+        root = cli_config_root(tmp, "smoke_par0", REFERENCE_CLI)
+        (root / "Replica" / "smoke_par1.yaml").write_text(
+            json.dumps(REFERENCE_CLI, indent=2))
+        classes = yaml_subset.load(root / "Replica" / "eval_info.yaml")[
+            "class_names_reduced"]
+        os.chdir(tmp)
+        try:
+            for exp, extra in (("serial", []),
+                               ("par", ["--parallel_scenes", "2"])):
+                argv = (["--dataset_name", "Replica", "--scenes", *scenes,
+                         "--experiment_name", exp, "--device", "cuda",
+                         "--run", "--segment", "--eval"] + extra)
+                t0 = time.time()
+                metrics = _cli(argv, root)
+                wall = time.time() - t0
+                per = {}
+                for name in scenes:
+                    d = Path(tmp) / "data/output/Replica" / exp
+                    ovo, _ = load_representation(d / name, device="cpu")
+                    per[name] = dict(
+                        ckpt=io_utils.load_ckpt(d / name / "ovo_map.ckpt"),
+                        sims=ovo.query(classes, [QUERY_TEMPLATE]),
+                        ids=ovo.active_ids(),
+                        labels=io_utils.read_labels(
+                            d / "replica" / f"{name}.txt"),
+                        mesh=io_utils._read_ply_vertices(
+                            Path(tmp) / "data/input/Datasets/Replica"
+                            / f"{name}_mesh.ply"))
+                out[exp] = dict(metrics=metrics, wall=wall, per=per)
+        finally:
+            os.chdir(cwd)
+    labels_equal = True
+    for name in scenes:
+        s, p = out["serial"]["per"][name], out["par"]["per"][name]
+        ms, mp = s["ckpt"]["map_params"], p["ckpt"]["map_params"]
+        if not (np.array_equal(ms["xyz"], mp["xyz"])
+                and np.array_equal(ms["obj_ids"], mp["obj_ids"])
+                and np.array_equal(s["ids"], p["ids"])):
+            raise AssertionError(f"reference_cli: --parallel_scenes 2 map "
+                                 f"of {name} differs from the serial run")
+        top2 = np.sort(s["sims"], axis=1)
+        clear_ids = s["ids"][top2[:, -1] - top2[:, -2] > 1e-4].tolist()
+        mesh_ins, _, _ = match_labels_to_vtx(
+            np.asarray(ms["obj_ids"]).reshape(-1), np.asarray(ms["xyz"]),
+            s["mesh"])
+        clear = np.isin(mesh_ins, clear_ids)
+        if not np.array_equal(s["labels"][clear], p["labels"][clear]):
+            raise AssertionError(f"reference_cli: --parallel_scenes 2 "
+                                 f"labels of {name} differ")
+        labels_equal &= bool(np.array_equal(s["labels"], p["labels"]))
+    if labels_equal and json.dumps(out["serial"]["metrics"]) != json.dumps(
+            out["par"]["metrics"]):
+        raise AssertionError("reference_cli: --parallel_scenes 2 metrics "
+                             "differ from the serial run's")
+    return dict(scenes=list(scenes), labels_equal=labels_equal,
+                miou=out["par"]["metrics"]["iou"],
+                serial_s=out["serial"]["wall"], parallel_s=out["par"]["wall"])
+
+
 def main(argv) -> int:
     """No arguments: every phase. ``--profile PATH [--image-size N |
     --crop | --cli | --sam1 | --orb | --gaussian]``: only gpu, build and
@@ -4719,8 +5212,13 @@ def main(argv) -> int:
     amg1280 = run_slice(dev, live=True, frames=30, image_size=1280)[0]
     emit("amg1280_slice", **amg1280)
     torch.cuda.empty_cache()
-    emit("batch_slice", **run_slice(dev, live=True, frames=30,
-                                    sam_batch=2)[0])
+    batch, batch_map = run_slice(dev, live=True, frames=30, sam_batch=2)
+    emit("batch_slice", **batch)
+    batch = map_snapshot(batch_map)
+    del batch_map
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("multidevice_slice", **run_multidevice(dev, batch))
     torch.cuda.empty_cache()
     emit("sam1_slice", **run_slice(dev, live=True, frames=30, sam1=True)[0])
     torch.cuda.empty_cache()
@@ -4732,6 +5230,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     emit("checkpoint", **run_checkpoint(dev))
     torch.cuda.empty_cache()
+    emit("merger_train", **run_merger_train(dev))
+    torch.cuda.empty_cache()
     crop, crop_map = run_slice(dev, frames=30, clip=CROP_CLIP)
     emit("crop_slice", **crop)
     text_depth = len(crop_map.ovo.embedder.model.text.blocks)
@@ -4739,8 +5239,12 @@ def main(argv) -> int:
                               {"windowed_attention": text_depth}))
     emit("query", **run_query(dev, pe_map.ovo, {}))
     del pe_map, crop_map
+    gc.collect()
     torch.cuda.empty_cache()
-    emit("reference_cli", **run_reference_cli(dev))
+    emit("viewer", **run_viewer(dev))
+    torch.cuda.empty_cache()
+    emit("reference_cli", **run_reference_cli(dev),
+         parallel_scenes=_reference_cli_parallel())
     emit("reference_orb", **run_reference_orb(dev))
     cli = run_cli(dev)
     emit("cli", **cli)

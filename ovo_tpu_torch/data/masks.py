@@ -136,3 +136,8 @@ class RecordedEmbedder:
     def embed_text(self, texts):
         return to_device(np.stack([self.text_embeds[t] for t in texts]),
                          self.device)
+
+    def similarity(self, txt_embeds, ins_desc):
+        from ..ops.similarity import clip_cosine_similarity
+
+        return clip_cosine_similarity(txt_embeds, ins_desc)

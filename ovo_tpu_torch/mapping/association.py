@@ -197,6 +197,43 @@ def _votes_and_writeback(map_state, store, seg, obj, AR, mask_valid,
     return ins_of_mask, n_new, dropped, unassigned_cnt
 
 
+def match_points(points: torch.Tensor, row_valid: torch.Tensor,
+                 seg_map: torch.Tensor, mask_valid: torch.Tensor,
+                 depth: torch.Tensor, c2w: torch.Tensor, K: torch.Tensor, *,
+                 w2c: Optional[torch.Tensor] = None,
+                 match_distance_th: float = 0.05,
+                 use_depth_filter: bool = True,
+                 rgb_depth_ratio: Optional[Tuple[float, float, int]] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The point-sized half of the association: frustum cull, projection,
+    depth match and the validated mask slot under each matched point.
+    Row-wise, so a block of the map's rows gives that block's answers (the
+    point-sharded step, ``parallel/shard.py``). Returns (seg (N,) i32 in
+    [-1, M), matched (N,) bool)."""
+    M = mask_valid.shape[0]
+    seg_img = _validated_seg_image(seg_map, mask_valid, M)
+    corners = geo.compute_camera_frustum_corners(depth, c2w, K)
+    in_frustum = geo.points_in_frustum(points, corners, valid=row_valid)
+    depth_m = geo.depth_filter(depth) if use_depth_filter else depth
+
+    h, w = depth.shape
+    z, in_plane, uc, vc = _project(points, K, geo.inverse_pose(c2w, w2c),
+                                   h, w)
+    flat_px = (vc * w + uc).long()
+    if rgb_depth_ratio is None:
+        g = geo.packed_pixel_table(depth_m, seg_img)[flat_px]
+        d_m, seg_pt = g[:, 0], g[:, 1].to(torch.int32)
+    else:
+        d_m = geo.packed_pixel_table(depth_m)[flat_px, 0]
+        seg_pt = geo.packed_pixel_table(seg_img)[
+            _pixel_lookup(uc, vc, seg_map, rgb_depth_ratio),
+            0].to(torch.int32)
+
+    matched = (in_frustum & in_plane & ((z - d_m).abs() < match_distance_th)
+               & (d_m != 0))
+    return torch.where(matched, seg_pt, torch.full_like(seg_pt, -1)), matched
+
+
 @torch.no_grad()
 def associate_keyframe(
     map_state: MapState, store: InstanceStore,
@@ -220,29 +257,10 @@ def associate_keyframe(
     caller has it (a small-matrix inverse on the card may synchronize)."""
     M = binary_maps.shape[0]
     AR, points, obj, row_valid = _active(map_state, active_rows)
-
-    seg_img = _validated_seg_image(seg_map, mask_valid, M)
-    corners = geo.compute_camera_frustum_corners(depth, c2w, K)
-    in_frustum = geo.points_in_frustum(points, corners, valid=row_valid)
-    depth_m = geo.depth_filter(depth) if use_depth_filter else depth
-
-    h, w = depth.shape
-    z, in_plane, uc, vc = _project(points, K, geo.inverse_pose(c2w, w2c),
-                                   h, w)
-    flat_px = (vc * w + uc).long()
-    if rgb_depth_ratio is None:
-        g = geo.packed_pixel_table(depth_m, seg_img)[flat_px]
-        d_m, seg_pt = g[:, 0], g[:, 1].to(torch.int32)
-    else:
-        d_m = geo.packed_pixel_table(depth_m)[flat_px, 0]
-        seg_pt = geo.packed_pixel_table(seg_img)[
-            _pixel_lookup(uc, vc, seg_map, rgb_depth_ratio),
-            0].to(torch.int32)
-
-    matched = (in_frustum & in_plane & ((z - d_m).abs() < match_distance_th)
-               & (d_m != 0))
-    seg = torch.where(matched, seg_pt, torch.full_like(seg_pt, -1))
-
+    seg, matched = match_points(
+        points, row_valid, seg_map, mask_valid, depth, c2w, K, w2c=w2c,
+        match_distance_th=match_distance_th,
+        use_depth_filter=use_depth_filter, rgb_depth_ratio=rgb_depth_ratio)
     ins_of_mask, n_new, dropped, unassigned_cnt = _votes_and_writeback(
         map_state, store, seg, obj, AR, mask_valid, track_th, M, active_cols)
     store, out = mask_level_tail(

@@ -26,8 +26,15 @@ poses, mapping on its keyframes) and ``gaussian_slam`` (poses by rendering
 a gaussian map, ``slam/gaussian``); when a backbone reports a big change
 after mapping a frame, the semantic map follows it through
 ``SemanticMapper.update_map`` and the seconds it took count in the
-frame's ``spf``. The viewer stream comes with a later slice and raises
-here.
+frame's ``spf``.
+
+The viewer stream (``vis.stream``, or ``enable_stream``): after each
+segment step the map's live rows go to a viewer process
+(``viz/visualizer.stream_pcd``) through a queue, and the mapper answers its
+text queries through a pipe and a shared flag (the reference's
+handshake). Each streamed frame reads the map to the host
+(:func:`stream_rows`), each answered query its instance ids
+(:func:`live_obj_ids`).
 """
 from __future__ import annotations
 
@@ -45,7 +52,24 @@ from .. import resolve_device
 from ..slam import get_slam_backbone
 from ..utils import io as io_utils
 from ..utils.logging import Logger
+from .map_state import MapState
 from .semantic import SemanticMapper
+
+
+def stream_rows(state: MapState) -> tuple:
+    """The map's live rows on the host for the viewer stream: (points,
+    obj_ids, colors) numpy arrays. The host reads of a streamed frame (the
+    count, then three copies), as the reference's ``np.asarray`` makes."""
+    n = int(state.count)
+    return (state.points[:n].cpu().numpy(), state.obj_ids[:n].cpu().numpy(),
+            state.colors[:n].cpu().numpy())
+
+
+def live_obj_ids(state: MapState) -> np.ndarray:
+    """The map's live instance ids on the host, all that a streamed query
+    reads of the map (the count, then one copy), as the reference reads
+    ``state.obj_ids[:n]``."""
+    return state.obj_ids[:int(state.count)].cpu().numpy()
 
 
 class OVOSemMap:
@@ -57,8 +81,6 @@ class OVOSemMap:
             # metric geometry and the resize matmuls are f32: no TF32
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        if (config.get("vis") or {}).get("stream", False):
-            raise NotImplementedError("the viewer stream is not ported yet")
         self.output_path = Path(output_path)
         self.output_path.mkdir(exist_ok=True, parents=True)
         io_utils.save_dict_to_yaml(config, "config.yaml",
@@ -105,6 +127,14 @@ class OVOSemMap:
         self.profile_trace_steps = int(config.get("profile_trace_steps", 3))
         self._trace_state = 0  # 0 idle, > 0 steps traced, -1 done
         self._profiler = None
+        vis_cfg = config.get("vis") or {}
+        self.stream = bool(vis_cfg.get("stream", False))
+        self.show_stream = bool(vis_cfg.get("show_stream", False))
+        self.pcd_queue = None
+        self.query_pipe = None
+        self.query_flag = None
+        self.viewer_proc = None
+        self._stream_has_queries = False
         self.first_frame = 0
         if config.get("restore_map", False):
             if config["slam"].get("slam_module", "vanilla") != "vanilla":
@@ -174,6 +204,112 @@ class OVOSemMap:
             print("Restoring without camera positions!")
 
     # ------------------------------------------------------------------
+    def enable_stream(self, spawn_process: bool = True, queries=None):
+        """Set up the viewer stream. With ``spawn_process`` a separate OS
+        process runs ``viz.visualizer.stream_pcd`` (headless it exports
+        snapshots and can issue scripted ``queries``); without, the caller
+        gets the viewer-side handles (queue, conn, flag) to drive the
+        handshake directly."""
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self._stream_has_queries = bool(queries)
+        self.pcd_queue = ctx.Queue()
+        self.query_flag = ctx.Value("i", 0)
+        parent_conn, child_conn = ctx.Pipe()
+        self.query_pipe = parent_conn
+        if not spawn_process:
+            return self.pcd_queue, child_conn, self.query_flag
+        from ..viz.visualizer import stream_pcd
+
+        cam = self.config.get("cam", {})
+        cam_arg = None
+        if {"fx", "fy", "cx", "cy", "H", "W"} <= set(cam):
+            K = np.array([[cam["fx"], 0, cam["cx"]],
+                          [0, cam["fy"], cam["cy"]],
+                          [0, 0, 1]], np.float64)
+            cam_arg = (K, int(cam["H"]), int(cam["W"]))
+        # a daemon: a run that raises does not wait at exit for a viewer
+        # still blocked on the queue
+        self.viewer_proc = ctx.Process(
+            target=stream_pcd,
+            args=(self.pcd_queue, child_conn, self.query_flag,
+                  str(self.output_path / "stream_out"), self.show_stream,
+                  queries, cam_arg), daemon=True)
+        self.viewer_proc.start()
+        return None
+
+    def _stream_frame(self, c2w=None) -> None:
+        self.pcd_queue.put(stream_rows(self.slam_backbone.get_map())
+                           + (None if c2w is None else np.asarray(c2w),))
+
+    def _serve_stream_query(self, timeout: float = 30.0) -> None:
+        """Mapper side of the query round trip: flag 1 -> receive the
+        query, drain the deferred descriptors, flag 2, send the per-point
+        similarities back."""
+        with self.query_flag.get_lock():
+            pending = self.query_flag.value == 1
+        if not pending or not self.query_pipe.poll(timeout):
+            return
+        query = self.query_pipe.recv()
+        if self.ovo._pending:
+            # sam.batch > 1: buffered keyframes are segmented and associated
+            # first, or their instances would be missing from the answer
+            new_state = self.ovo.flush_segmentation(
+                self.slam_backbone.get_map())
+            if new_state is not None:
+                self.slam_backbone.update_pcd_obj_ids(new_state)
+        self.ovo.complete_semantic_info()
+        obj_ids = live_obj_ids(self.slam_backbone.get_map())
+        from ..viz.visualizer import Visualizer
+
+        vals = Visualizer(self.ovo).query_values_per_point(obj_ids, query)
+        # the flag goes to 2 before the values are sent (the reference sends
+        # first): a map's values overfill the pipe's buffer, the send then
+        # blocks until the viewer reads, and the viewer reads only once it
+        # sees the flag
+        with self.query_flag.get_lock():
+            self.query_flag.value = 2
+        self.query_pipe.send(vals)
+
+    def _close_stream(self) -> None:
+        if self.pcd_queue is not None:
+            # grace period: the viewer may not have taken the last frame, or
+            # may have a query in flight
+            t0 = time.time()
+            while time.time() - t0 < 5.0:
+                self._serve_stream_query(timeout=0.05)
+                try:
+                    drained = self.pcd_queue.qsize() == 0
+                except NotImplementedError:  # macOS
+                    drained = True
+                with self.query_flag.get_lock():
+                    idle = self.query_flag.value == 0
+                if drained and idle:
+                    break
+                time.sleep(0.02)
+            self.pcd_queue.put(None)
+        if self.viewer_proc is not None:
+            # keep answering while waiting: a slow viewer may issue its
+            # scripted queries only after the run ended, and an unanswered
+            # flag 1 stalls it for its whole per-query timeout before it
+            # writes the final exports. Without scripted queries a wedged
+            # viewer delays the exit 30 s at most.
+            cap = 300 if self._stream_has_queries else 30
+            t0 = time.time()
+            while self.viewer_proc.is_alive() and time.time() - t0 < cap:
+                self._serve_stream_query(timeout=0.05)
+                self.viewer_proc.join(timeout=0.5)
+            if self.viewer_proc.is_alive():
+                self.viewer_proc.terminate()
+                self.viewer_proc.join()
+            self.viewer_proc = None
+        elif self.pcd_queue is not None:
+            # no consumer: the queue's feeder thread would block the
+            # interpreter's exit on unflushed frames
+            self.pcd_queue.cancel_join_thread()
+
+    # ------------------------------------------------------------------
     def _start_trace(self) -> None:
         from torch.profiler import ProfilerActivity, profile
 
@@ -199,6 +335,8 @@ class OVOSemMap:
                     or fid % self.segment_every == 0)]
 
     def run(self) -> None:
+        if self.stream and self.pcd_queue is None:
+            self.enable_stream(spawn_process=True)
         spf = []
         t_start = time.time()
         schedule = self._frame_schedule()
@@ -245,6 +383,7 @@ class OVOSemMap:
             if new_state is not None:
                 self.slam_backbone.update_pcd_obj_ids(new_state)
         self.ovo.complete_semantic_info()
+        self._close_stream()
         t_end = time.time()
         fps = len(self.dataset) / self.segment_every / (t_end - t_start)
         self.logger.log_fps(fps)
@@ -276,7 +415,8 @@ class OVOSemMap:
         # association (one pass, shared projection and gathers)
         fuse_this = (do_map and do_seg and slam_module == "vanilla"
                      and self.slam_backbone.supports_fused_insert
-                     and self.ovo.sam_batch == 1)
+                     and self.ovo.sam_batch == 1
+                     and not self.ovo.point_shard)
         t_lc = 0.0
         if do_map and not fuse_this:
             self.slam_backbone.map(frame_data, c2w)
@@ -315,6 +455,9 @@ class OVOSemMap:
         self.ovo.compute_semantic_info()
         self.logger.log_memory_usage(frame_id)
         t_sem = time.time() - t0
+        if self.pcd_queue is not None:
+            self._stream_frame(c2w)
+            self._serve_stream_query()
         if self.profile_trace and self._trace_state >= 0:
             self._trace_state += 1
             if self._trace_state > self.profile_trace_steps:

@@ -21,9 +21,16 @@ segment keyframes are buffered, segmented in one batched mask-source call
 descriptors are popped B at a time through the embedder's
 ``embed_masks_batch``. A flush reads each keyframe's mask validity on the
 host (the reference's skip-on-empty); it is the only host read of that
-path's frame loop. Point sharding, the sharded query and the
-data-parallel embedder come with later slices and raise
-``NotImplementedError`` here.
+path's frame loop.
+
+Multi-process paths (``parallel`` keys, ``parallel/shard.py``), over the
+world's ranks all on the dp axis (the default process group when one is
+initialised, else a world of one, with trivial collectives):
+``point_shard`` associates each rank's block of the map's rows with one
+``all_reduce`` of the votes, then gathers the relabelled blocks once a
+keyframe (the map stays replicated on every rank); ``dp_embed`` splits a
+micro-batch of keyframes over the ranks and gathers the descriptors;
+``shard_query`` splits the instances of a text query.
 
 Semantic loop closure (``update_map``, called by the pipeline when a SLAM
 backbone reports a big change): the deferred descriptors are drained, the
@@ -154,9 +161,21 @@ class SemanticMapper:
         self.sam_batch = int(config.get("sam", {}).get("batch", 1))
         self._pending: List[tuple] = []
         par_cfg = config.get("parallel", {}) or {}
-        if any(par_cfg.get(k, False)
-               for k in ("point_shard", "shard_query", "dp_embed")):
-            raise NotImplementedError("multi-device paths are not ported yet")
+        self.point_shard = bool(par_cfg.get("point_shard", False))
+        self.shard_query = bool(par_cfg.get("shard_query", False))
+        self.dp_embed = bool(par_cfg.get("dp_embed", False))
+        self._mesh = None
+
+    @property
+    def mesh(self):
+        """The world's ranks, all on dp (built on first use: every rank of
+        the world must reach it)."""
+        if self._mesh is None:
+            from ..parallel.mesh import make_mesh, world_size
+
+            self._mesh = make_mesh((world_size(), 1))
+            self._mesh.check_device(self.device)
+        return self._mesh
 
     # ------------------------------------------------------------------
     # Per-keyframe association
@@ -284,6 +303,9 @@ class SemanticMapper:
                   unbounded_top_k=self.unbounded_top_k,
                   rgb_depth_ratio=ratio, active_cols=a_cols)
         if insert is not None:
+            if self.point_shard:
+                raise ValueError("the fused insert is single-device "
+                                 "(point_shard associates in two steps)")
             map_state, self.store, match = associate_and_insert_keyframe(
                 map_state, self.store, seg_map, binary_maps, mask_valid,
                 to_device(insert["colors"], dev), depth_d, c2w_d,
@@ -291,6 +313,18 @@ class SemanticMapper:
                 insert_match_th=insert["insert_match_th"],
                 k_pooling=insert["k_pooling"], downscale=insert["downscale"],
                 active_rows=insert.get("active_rows"), **kw)
+        elif self.point_shard:
+            from ..parallel.shard import (gather_point_blocks,
+                                          sharded_associate_keyframe)
+
+            map_state, self.store, match = sharded_associate_keyframe(
+                self.mesh, map_state, self.store, seg_map, binary_maps,
+                mask_valid, depth_d, c2w_d, self.cam_intrinsics, kf, **kw)
+            # each rank relabelled its own block of rows; the map stays
+            # replicated, so the blocks are gathered once a keyframe: the
+            # explicit form of the reshard GSPMD inserts in the reference
+            # before the next insert program
+            gather_point_blocks(self.mesh, map_state.obj_ids)
         else:
             map_state, self.store, match = associate_keyframe(
                 map_state, self.store, seg_map, binary_maps, mask_valid,
@@ -376,10 +410,11 @@ class SemanticMapper:
         t0 = time.time()
         if (len(kfs) > 1 and all(any_keep)
                 and hasattr(self.embedder, "embed_masks_batch")):
-            descs_list = self.embedder.embed_masks_batch(
-                torch.stack([kf["image"] for kf in kfs]),
-                torch.stack([kf["fused_maps"] for kf in kfs]),
-                torch.stack(keeps))
+            batch = (torch.stack([kf["image"] for kf in kfs]),
+                     torch.stack([kf["fused_maps"] for kf in kfs]),
+                     torch.stack(keeps))
+            descs_list = (self._dp_embed_batch(*batch) if self.dp_embed
+                          else self.embedder.embed_masks_batch(*batch))
         else:
             descs_list = [
                 self.embedder.embed_masks(kf["image"], kf["fused_maps"], k)
@@ -404,6 +439,17 @@ class SemanticMapper:
                 "t_clip": round(t_clip, 2),
                 "t_up": round(time.time() - t0, 3),
             }, print_output=True)
+
+    def _dp_embed_batch(self, imgs, maps, keepb) -> torch.Tensor:
+        """Data-parallel keyframe embedding: the batch padded to the
+        world's size, each rank's block through the replicated embedder,
+        the descriptors gathered (``parallel.shard.dp_batched_embed``)."""
+        from ..parallel.shard import dp_batched_embed
+
+        dev = self.device
+        return dp_batched_embed(self.mesh, self.embedder.embed_masks_batch,
+                                to_device(imgs, dev), to_device(maps, dev),
+                                to_device(keepb, dev))
 
     # ------------------------------------------------------------------
     # Loop closure
@@ -620,7 +666,14 @@ class SemanticMapper:
             mean = self.embedder.embed_text(
                 [t.format(q) for t in templates]).float().mean(dim=0)
             txt.append(mean / torch.linalg.vector_norm(mean).clamp_min(1e-12))
-        sim = self.embedder.similarity(torch.stack(txt), obj_clips)
+        txt = torch.stack(txt)
+        if self.shard_query:
+            from ..parallel.shard import sharded_similarity
+
+            sim = sharded_similarity(self.mesh, self.embedder.similarity,
+                                     txt, obj_clips)
+        else:
+            sim = self.embedder.similarity(txt, obj_clips)
         return sim.cpu().numpy()
 
     def classify_instances(self, classes: Sequence[str],

@@ -181,17 +181,21 @@ def multi_head_attention(p: Attention, x: torch.Tensor, n_heads: int,
     B, L, D = x.shape
     hd = D // n_heads
     qkv = p.qkv(x)
+    # a tensor-parallel rank's qkv holds its own heads only
+    # (parallel/mesh.tp_shard_tower)
+    Dq = qkv.shape[-1] // 3
+    hq = Dq // hd
     if kernel:
         cos, sin = rope
         o = rope_packed_attention(qkv, cos[:L].contiguous(),
-                                  sin[:L].contiguous(), heads=n_heads,
+                                  sin[:L].contiguous(), heads=hq,
                                   kv_len=n_valid)
         return p.out(o)
 
     def heads(t):
-        return t.reshape(B, L, n_heads, hd).transpose(1, 2)
+        return t.reshape(B, L, hq, hd).transpose(1, 2)
 
-    q, k, v = (heads(t) for t in qkv.split(D, dim=-1))
+    q, k, v = (heads(t) for t in qkv.split(Dq, dim=-1))
     mask = None
     if n_valid is not None and n_valid < L:
         mask = (torch.arange(L, device=x.device) < n_valid)[None, None,
@@ -207,7 +211,7 @@ def multi_head_attention(p: Attention, x: torch.Tensor, n_heads: int,
         o = xla_attention(q, k, v, mask=mask)
     else:
         o = dot_product_attention(q, k, v, mask=mask, causal=causal)
-    return p.out(o.transpose(1, 2).reshape(B, L, D))
+    return p.out(o.transpose(1, 2).reshape(B, L, Dq))
 
 
 def transformer_block(p: Block, x: torch.Tensor, n_heads: int,

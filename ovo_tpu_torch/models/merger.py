@@ -1,18 +1,19 @@
-"""Learned 3-descriptor merger, inference only (port of
+"""Learned 3-descriptor merger and its train step (port of
 ``ovo_tpu/models/merger.py``).
 
 A transformer encoder over the three candidate CLIP vectors of a segment
 (global / masked crop / bbox crop), an MLP head giving one logit per token,
 softmax weights, the weighted sum, L2-normalized. Its attention has head size
 144 (1152 / 8), which the reference routes to XLA: here the plain route of
-``ops/attention.dot_product_attention``, on either device. The trained
-``model.pt`` loads through ``models/convert.py``; the train step comes with
-a training slice.
+``ops/attention.dot_product_attention``, on either device. So neither the
+forward nor the train step (autograd through that forward, then
+``torch.optim.Adam``) launches a kernel. The trained ``model.pt`` loads
+through ``models/convert.py``.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -55,11 +56,11 @@ def init_merger(generator: torch.Generator, d_model: int = 1152,
     return m
 
 
-@torch.no_grad()
-def merger_apply(params: MergerParams, clips: torch.Tensor,
-                 n_heads: int = 8) -> torch.Tensor:
+def merger_forward(params: MergerParams, clips: torch.Tensor,
+                   n_heads: int = 8) -> torch.Tensor:
     """clips (B, 3, D) -> fused (B, D): transformer over the 3 tokens,
-    per-token scalar -> softmax weights -> weighted sum -> normalize."""
+    per-token scalar -> softmax weights -> weighted sum -> normalize.
+    Differentiable: the train step's forward."""
     x = clips
     for blk in params.blocks:
         x = L.transformer_block(blk, x, n_heads)
@@ -68,6 +69,63 @@ def merger_apply(params: MergerParams, clips: torch.Tensor,
     fused = torch.einsum("bk,bkd->bd", w.float(), clips.float())
     return fused / torch.linalg.vector_norm(
         fused, dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+@torch.no_grad()
+def merger_apply(params: MergerParams, clips: torch.Tensor,
+                 n_heads: int = 8) -> torch.Tensor:
+    """:func:`merger_forward` for inference (no autograd graph)."""
+    return merger_forward(params, clips, n_heads)
+
+
+def merger_loss(params: MergerParams, clips: torch.Tensor,
+                target: torch.Tensor, n_heads: int = 8) -> torch.Tensor:
+    """Cosine-distance regression against target descriptors (how the
+    reference's merger was trained offline): the batch mean of
+    ``1 - cos(fused, target / max(|target|, 1e-12))``."""
+    fused = merger_forward(params, clips, n_heads)
+    tgt = target / torch.linalg.vector_norm(
+        target, dim=-1, keepdim=True).clamp_min(1e-12)
+    return (1.0 - (fused * tgt).sum(dim=-1)).mean()
+
+
+def make_train_step(params: MergerParams, lr: float, n_heads: int = 8,
+                    grad_hook: Optional[Callable[[MergerParams], None]] = None
+                    ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """A step ``(clips, target) -> loss`` that updates ``params`` in place
+    with Adam (``optax.adam(lr)``'s function: b1 0.9, b2 0.999, eps 1e-8
+    added to the bias-corrected sqrt(v), rounded in another order).
+    ``grad_hook(params)`` runs between ``backward()`` and the update (the
+    data-parallel step averages the gradients across ranks there); without
+    it the step is single-device. No kernel is differentiated: the head size
+    is 144, so attention takes the plain route on either device; on the
+    card a head size that would take a kernel route raises (the kernels
+    have no backward)."""
+    from ..ops.attention import MAX_HEAD_DIM
+
+    dev = next(params.parameters()).device
+    hd = params.blocks[0].attn.qkv.w.shape[0] // n_heads \
+        if len(params.blocks) else MAX_HEAD_DIM + 1
+    if dev.type != "cpu" and hd <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"head size {hd}: attention on {dev} would take a kernel route, "
+            f"which has no backward; the train step differentiates the "
+            f"plain route (head size above {MAX_HEAD_DIM}, as the merger's "
+            f"144)")
+    params.requires_grad_(True)
+    optimizer = torch.optim.Adam(params.parameters(), lr=lr,
+                                 betas=(0.9, 0.999), eps=1e-8)
+
+    def train_step(clips: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = merger_loss(params, clips, target, n_heads)
+        loss.backward()
+        if grad_hook is not None:
+            grad_hook(params)
+        optimizer.step()
+        return loss.detach()
+
+    return train_step
 
 
 class LearnedMerger:

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -185,9 +185,13 @@ def patchify(p: PatchEmbed, imgs: torch.Tensor, patch: int) -> torch.Tensor:
 
 def forward_features(model: VisionTransformer, cfg: ViTConfig,
                      imgs: torch.Tensor, norm: bool = True,
-                     attn_impl: str = "auto") -> torch.Tensor:
+                     attn_impl: str = "auto",
+                     block_fn: Optional[Callable] = None) -> torch.Tensor:
     """imgs (B, H, W, 3) float in model input scale -> tokens
-    (B, n_tokens, width); ``ln_post`` applied when ``norm``."""
+    (B, n_tokens, width); ``ln_post`` applied when ``norm``. ``block_fn``
+    (``layers.transformer_block``'s signature) replaces the per-layer block,
+    as the tensor-parallel tower does (``parallel/mesh.py``); the
+    whole-block kernels are then not taken."""
     x = patchify(model.patch, imgs.to(cfg.dtype), cfg.patch_size)
     B, Lp, W = x.shape
     grid = int(round(Lp ** 0.5))
@@ -206,7 +210,7 @@ def forward_features(model: VisionTransformer, cfg: ViTConfig,
         rope = L.rope2d_freqs(grid, grid, hd, n_prefix=n_prefix,
                               device=x.device)
 
-    if _use_fused_blocks(attn_impl, model, x.device):
+    if block_fn is None and _use_fused_blocks(attn_impl, model, x.device):
         from ..ops.fused_block import fused_transformer_block
 
         for blk in model.blocks:
@@ -228,10 +232,10 @@ def forward_features(model: VisionTransformer, cfg: ViTConfig,
             pad_t = rope[0].new_zeros((padn, rope[0].shape[-1]))
             rope = (torch.cat([rope[0], pad_t]), torch.cat([rope[1], pad_t]))
             n_valid = Lr
+    block_fn = block_fn or L.transformer_block
     for blk in model.blocks:
-        x = L.transformer_block(blk, x, cfg.n_heads, rope=rope,
-                                attn_impl=attn_impl, act=cfg.act,
-                                n_valid=n_valid)
+        x = block_fn(blk, x, cfg.n_heads, rope=rope, attn_impl=attn_impl,
+                     act=cfg.act, n_valid=n_valid)
     if n_valid is not None:
         x = x[:, :n_valid]
     if norm:
@@ -279,9 +283,11 @@ def attn_pool(p: AttnPool, x: torch.Tensor, n_heads: int,
 
 
 def encode(model: VisionTransformer, cfg: ViTConfig, imgs: torch.Tensor,
-           attn_impl: str = "auto", project: bool = True) -> torch.Tensor:
+           attn_impl: str = "auto", project: bool = True,
+           block_fn: Optional[Callable] = None) -> torch.Tensor:
     """Pooled image embedding (B, embed_dim)."""
-    x = forward_features(model, cfg, imgs, norm=True, attn_impl=attn_impl)
+    x = forward_features(model, cfg, imgs, norm=True, attn_impl=attn_impl,
+                         block_fn=block_fn)
     if cfg.pool == "attn":
         pooled = attn_pool(model.attn_pool, x, cfg.n_heads)
     elif cfg.pool == "cls":

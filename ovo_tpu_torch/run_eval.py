@@ -12,7 +12,10 @@
 
 The same flags, config layering, output tree and files as ``run_eval.py``,
 plus ``--device`` (``cuda`` by default; without a card it raises, it never
-falls back to the CPU on its own). Paths are relative to the working
+falls back to the CPU on its own). ``--parallel_scenes N`` runs N scenes at
+a time, each in a spawned process pinned through ``CUDA_VISIBLE_DEVICES``
+to card ``slot % device_count`` (with ``--device cpu``, on the CPU); a
+worker that exits non-zero raises. Paths are relative to the working
 directory, as in the JAX CLI; ``main(args, config_root=...)`` reads the
 configs from another tree than the repository's ``configs/``.
 """
@@ -29,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 
+from . import resolve_device
 from .config import REPO_ROOT, assemble_run_config
 from .eval.semantics import eval_semantics
 from .eval.transfer import match_labels_to_vtx
@@ -145,15 +149,63 @@ def run_scene(scene: str, dataset: str, experiment_name: str,
     print("Finished run.✨")
 
 
+def _scene_worker(scene: str, dataset: str, experiment_name: str,
+                  tmp_run: bool, card: Optional[int], config_root: Path,
+                  device: str) -> None:
+    """One scene in its own process, pinned to one card (``card``; None on
+    the CPU) before anything touches CUDA."""
+    if card is not None:
+        os.environ["CUDA_VISIBLE_DEVICES"] = str(card)
+    t0 = time.time()
+    run_scene(scene, dataset, experiment_name, tmp_run=tmp_run,
+              config_root=config_root, device=device)
+    print(f"Scene {scene} took: {time.time() - t0:.2f}")
+
+
+def _run_scenes_parallel(scenes, dataset, experiment_name, tmp_run,
+                         n_workers: int, config_root: Path,
+                         device: str) -> None:
+    """Scenes ``n_workers`` at a time in spawned processes, worker ``slot``
+    on card ``slot % device_count``; raises if a worker exits non-zero."""
+    import multiprocessing as mp
+
+    import torch
+
+    n_cards = (torch.cuda.device_count()
+               if resolve_device(device).type == "cuda" else 0)
+    ctx = mp.get_context("spawn")
+    pending = list(scenes)
+    running = []
+    slot = 0
+    try:
+        while pending or running:
+            while pending and len(running) < n_workers:
+                scene = pending.pop(0)
+                p = ctx.Process(target=_scene_worker, args=(
+                    scene, dataset, experiment_name, tmp_run,
+                    slot % n_cards if n_cards else None, config_root,
+                    device))
+                p.start()
+                running.append((scene, p))
+                slot += 1
+            for scene, p in list(running):
+                p.join(timeout=1)
+                if not p.is_alive():
+                    running.remove((scene, p))
+                    if p.exitcode != 0:
+                        raise RuntimeError(
+                            f"scene {scene} failed (exit {p.exitcode})")
+    finally:
+        for _, p in running:
+            p.terminate()
+            p.join()
+
+
 def main(args, config_root=None) -> Optional[dict]:
     """Runs the phases ``args`` asks for; returns the ``--eval`` metrics
     (mIoU ``iou``, mAcc ``acc``, ...) or None."""
     config_root = Path(config_root) if config_root is not None \
         else CONFIG_ROOT
-    if args.parallel_scenes > 1:
-        raise NotImplementedError(
-            "--parallel_scenes > 1 is not ported yet (ROADMAP item 10, "
-            "multi-device)")
     if args.experiment_name is None:
         experiment_name = datetime.now().strftime("%Y%m%d_%H%M")
         tmp_run = True
@@ -178,15 +230,22 @@ def main(args, config_root=None) -> Optional[dict]:
             scenes = dataset_info["scenes"]
 
     input_path = ""
-    for scene in scenes:
-        input_path = f"./data/input/Datasets/{args.dataset_name}/{scene}"
-        if args.run:
-            t0 = time.time()
-            run_scene(scene, args.dataset_name, experiment_name,
-                      tmp_run=tmp_run, config_root=config_root,
-                      device=args.device)
-            print(f"Scene {scene} took: {time.time() - t0:.2f}")
-        gc.collect()
+    if args.run and args.parallel_scenes > 1:
+        _run_scenes_parallel(scenes, args.dataset_name, experiment_name,
+                             tmp_run, args.parallel_scenes, config_root,
+                             args.device)
+        input_path = (f"./data/input/Datasets/{args.dataset_name}/"
+                      f"{scenes[-1]}" if scenes else "")
+    else:
+        for scene in scenes:
+            input_path = f"./data/input/Datasets/{args.dataset_name}/{scene}"
+            if args.run:
+                t0 = time.time()
+                run_scene(scene, args.dataset_name, experiment_name,
+                          tmp_run=tmp_run, config_root=config_root,
+                          device=args.device)
+                print(f"Scene {scene} took: {time.time() - t0:.2f}")
+            gc.collect()
 
     if args.segment:
         for scene in scenes:
@@ -224,8 +283,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--eval", action="store_true")
     parser.add_argument("--ignore_background", action="store_true")
     parser.add_argument("--parallel_scenes", type=int, default=1,
-                        help="run N scenes concurrently (not ported: must "
-                             "be 1)")
+                        help="run N scenes concurrently, one process each "
+                             "(worker slot s on card s mod device_count)")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="where the port runs (default: the CUDA card)")
     return parser.parse_args(argv)

@@ -434,3 +434,48 @@ def test_checkpoints_cross_between_packages(cli_runs):
             assert (out / a / "instance_pred/tinyroom3.txt").read_bytes() == \
                 (out / b / "instance_pred/tinyroom3.txt").read_bytes()
     assert metrics["jax_by_port"] is not None
+
+
+def test_parallel_scenes_match_serial(tmp_path, monkeypatch):
+    """``--parallel_scenes 2 --device cpu`` runs two scenes in two spawned
+    workers; the --segment label files and the --eval metrics equal the
+    serial run's (the port's own seeded weights in every process)."""
+    root = tmp_path
+    shutil.copytree(ROOT / "configs", root / "configs")
+    shutil.copy(root / "configs/Replica/tinyroom3.yaml",
+                root / "configs/Replica/tinyroom3b.yaml")
+    write_replica_scene(root, "tinyroom3", 4)
+    write_replica_scene(root, "tinyroom3b", 3)
+    monkeypatch.chdir(root)
+    monkeypatch.setenv("DISABLE_WANDB", "true")
+    # the spawned workers take one thread each beside the test workers
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    metrics = {}
+    for exp, extra in (("serial", []), ("par", ["--parallel_scenes", "2"])):
+        argv = ["--dataset_name", "Replica", "--scenes", "tinyroom3",
+                "tinyroom3b", "--experiment_name", exp, "--run", "--segment",
+                "--eval", "--device", "cpu"] + extra
+        metrics[exp] = port_cli.main(port_cli.parse_args(argv),
+                                     config_root=root / "configs")
+    out = root / "data/output/Replica"
+    for scene in ("tinyroom3", "tinyroom3b"):
+        assert (out / "par" / scene / "ovo_map.ckpt").exists()
+        np.testing.assert_array_equal(
+            tio.read_labels(out / "par/replica" / f"{scene}.txt"),
+            tio.read_labels(out / "serial/replica" / f"{scene}.txt"))
+    assert np.isfinite(metrics["serial"]["iou"])
+    assert json.dumps(metrics["par"], sort_keys=True) == json.dumps(
+        metrics["serial"], sort_keys=True)
+
+
+def test_parallel_scenes_worker_failure_raises(tmp_path, monkeypatch):
+    """A worker that exits non-zero (here: its scene has no input) fails
+    the run."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("DISABLE_WANDB", "true")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    argv = ["--dataset_name", "Replica", "--scenes", "tinyroom3",
+            "tinyroom3", "--experiment_name", "e", "--run", "--device",
+            "cpu", "--parallel_scenes", "2"]
+    with pytest.raises(RuntimeError, match="scene tinyroom3 failed"):
+        port_cli.main(port_cli.parse_args(argv))

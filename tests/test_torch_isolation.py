@@ -10,7 +10,11 @@ open_clip and a merger checkpoint, and drives the ORB backbone (the native
 tracker built from the port's own copy, loop closures through
 ``update_map``), builds the Gaussian-SLAM backbone and renders through its
 splatter with a gradient. No string in the port's code names a path into the JAX
-package."""
+package. The last modules (the merger's train step, ``parallel/``, ``viz/``,
+``visualize_scene``) import none of jax, matplotlib, yaml or ``ovo_tpu``, and
+run with the four blocked: the train step, a point-sharded, data-parallel,
+instance-sharded pipeline in a world of one, the viewer stream with a query
+and ``visualize_scene``'s headless exports."""
 import ast
 import os
 import re
@@ -304,4 +308,117 @@ def test_entry_points_refuse_silent_cpu_fallback(tmp_path, monkeypatch):
                                  "model_card": "tiny-test"}})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_merger(None)
+    from ovo_tpu_torch.parallel import dryrun
+
+    # the dry run's defaults are nccl on the cards: gloo only when asked
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--world", "1"])
     assert resolve_device("cpu").type == "cpu"
+
+
+NEW_MODULES = ("ovo_tpu_torch/models/merger.py",
+               "ovo_tpu_torch/parallel/__init__.py",
+               "ovo_tpu_torch/parallel/mesh.py",
+               "ovo_tpu_torch/parallel/shard.py",
+               "ovo_tpu_torch/parallel/dryrun.py",
+               "ovo_tpu_torch/viz/__init__.py",
+               "ovo_tpu_torch/viz/visualizer.py",
+               "ovo_tpu_torch/visualize_scene.py")
+
+
+def test_last_modules_import_no_jax_matplotlib_yaml():
+    bad = [(m, name) for m in NEW_MODULES
+           for name in _imported_modules(ROOT / m)
+           if name.split(".")[0] in FORBIDDEN + ("matplotlib", "yaml")]
+    assert not bad, bad
+
+
+_BLOCKED_LAST = r"""
+import sys
+import importlib.abc
+BLOCKED = ("jax", "jaxlib", "yaml", "cv2", "matplotlib", "ovo_tpu")
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"No module named {{name!r}}")
+        return None
+for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
+    del sys.modules[name]
+sys.meta_path.insert(0, _Block())
+sys.path[:0] = [{root!r}, {tests!r}]
+import os
+from pathlib import Path
+import numpy as np
+import torch
+from ovo_tpu_torch.models.merger import init_merger, make_train_step
+from ovo_tpu_torch.parallel import dryrun, mesh, shard
+from ovo_tpu_torch.viz import visualizer
+from ovo_tpu_torch import run_eval, visualize_scene
+params = init_merger(torch.Generator().manual_seed(0), d_model=16, depth=1,
+                     mlp_hidden=8)
+clips = torch.randn(4, 3, 16, generator=torch.Generator().manual_seed(1))
+step = make_train_step(params, 1e-3)
+losses = [float(step(clips, clips[:, 1])) for _ in range(3)]
+assert losses[-1] < losses[0]
+assert visualizer.heatmap_colors(np.linspace(0, 1, 5)).shape == (5, 3)
+from ovo_tpu_torch.data.masks import CallableMaskSource, RecordedEmbedder
+from ovo_tpu_torch.mapping.pipeline import OVOSemMap
+from synthetic_scene import (CLASSES, SyntheticWallDataset,
+                             class_embeddings, mask_label_fn,
+                             synthetic_mask_fn)
+embeds = class_embeddings(16)
+cfg = {{
+    "dataset_name": "synthetic", "use_wandb": False, "debug": False,
+    "slam": {{"slam_module": "vanilla"}},
+    "mapping": {{"map_every": 2, "k_pooling": 1, "downscale_res": 1,
+                "n_points_capacity": 1 << 16}},
+    "data": {{"scene_name": "wall0"}}, "vis": {{"stream": True}},
+    "cam": {{"fx": 80.0, "fy": 80.0, "cx": 47.5, "cy": 31.5, "H": 64,
+            "W": 96}},
+    "semantic": {{"segment_every": 2, "track_th": 40, "kf_queue_delay": 1,
+                 "capacity": {{"n_instances": 64, "n_masks": 16}},
+                 "sam": {{"batch": 2}},
+                 "clip": {{"k_top_views": 10000, "fusion": "avg_pooling",
+                          "clip_dim": 16}},
+                 "parallel": {{"point_shard": True, "shard_query": True,
+                              "dp_embed": True}}}},
+}}
+m = OVOSemMap(cfg, {out!r}, dataset=SyntheticWallDataset(n_frames=6),
+              mask_source=CallableMaskSource(synthetic_mask_fn, 16, "cpu"),
+              embedder=RecordedEmbedder(16, mask_label_fn, embeds,
+                                        {{c: embeds[i] for i, c in
+                                          enumerate(CLASSES)}},
+                                        device="cpu"),
+              device="cpu")
+m.run()
+assert m.ovo.mesh.shape == (1, 1) and m.ovo.mesh.backend is None
+assert m.ovo.query(["chair"]).shape[1] == 1
+assert (Path({out!r}) / "stream_out" / "stream_final_instances.ply").exists()
+os.chdir({cli!r})
+from replica_png_scene import write_replica_scene
+write_replica_scene(Path("."), "tinyroom3", 4)
+run_eval.main(run_eval.parse_args(
+    "--dataset_name Replica --scenes tinyroom3 --experiment_name iso "
+    "--run --device cpu".split()))
+visualize_scene.main(visualize_scene.parse_args(
+    ["data/output/Replica/iso/tinyroom3", "--queries", "wall", "--obb",
+     "--device", "cpu"]))
+vis = Path("data/output/Replica/iso/tinyroom3/vis_out")
+assert (vis / "query_wall_query.ply").exists()
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+print("ISOLATED-LAST-OK")
+"""
+
+
+def test_last_modules_run_with_jax_matplotlib_yaml_blocked(tmp_path):
+    (tmp_path / "cli").mkdir()
+    code = _BLOCKED_LAST.format(root=str(ROOT), tests=str(ROOT / "tests"),
+                                out=str(tmp_path / "out"),
+                                cli=str(tmp_path / "cli"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "ISOLATED-LAST-OK" in proc.stdout

@@ -128,22 +128,25 @@ def test_pipeline_recorded_descriptors_match_jax(tmp_path):
 
 
 def test_pipeline_rejects_unported_options(tmp_path):
-    """The viewer stream and the multi-device keys still raise; the
+    """Every option of the reference's pipeline is ported: the viewer
+    stream and the multi-device keys construct (their runs:
+    tests/test_torch_viewer.py, tests/test_torch_parallel.py), as do the
     ORB-SLAM backbone (tests/test_torch_orbslam.py), the Gaussian-SLAM
     backbone (tests/test_torch_gaussian_pipeline.py), the profiler hook,
-    map restore, SAM micro-batching and the debug restore are ported
-    (tests/test_torch_orchestrator.py) and construct; the ORB backbone runs
-    two frames."""
+    map restore, SAM micro-batching and the debug restore
+    (tests/test_torch_orchestrator.py); the ORB backbone runs two frames.
+    What the reference refuses is refused: the fused map insert under
+    ``point_shard``."""
     cfg = make_config(16)
     embeds = class_embeddings(16)
     kw = dict(mask_source=CallableMaskSource(synthetic_mask_fn, 16, "cpu"),
               embedder=RecordedEmbedder(16, mask_label_fn, embeds,
                                         device="cpu"),
               dataset=SyntheticWallDataset(n_frames=2), device="cpu")
-    bad = copy.deepcopy(cfg)
-    bad["vis"] = {"stream": True}
-    with pytest.raises(NotImplementedError):
-        OVOSemMap(bad, tmp_path / "vis", **kw)
+    vis = copy.deepcopy(cfg)
+    vis["vis"] = {"stream": True}
+    pipe = OVOSemMap(vis, tmp_path / "vis", **kw)
+    assert pipe.stream and pipe.pcd_queue is None
     orb = copy.deepcopy(cfg)
     orb["slam"]["slam_module"] = "orbslam"
     pipe = OVOSemMap(orb, tmp_path / "orb", **dict(
@@ -152,10 +155,19 @@ def test_pipeline_rejects_unported_options(tmp_path):
     assert sorted(pipe.slam_backbone.estimated_c2ws) == [0, 1]
     assert int(pipe.slam_backbone.get_map().count) > 1000
     for key in ("point_shard", "shard_query", "dp_embed"):
-        bad = copy.deepcopy(cfg)
-        bad["semantic"]["parallel"] = {key: True}
-        with pytest.raises(NotImplementedError):
-            OVOSemMap(bad, tmp_path / key, **kw)
+        par = copy.deepcopy(cfg)
+        par["semantic"]["parallel"] = {key: True}
+        pipe = OVOSemMap(par, tmp_path / key, **kw)
+        assert getattr(pipe.ovo, key)
+    frame = SyntheticWallDataset(n_frames=1)[0]
+    with pytest.raises(ValueError, match="fused insert"):
+        pipe_ps = OVOSemMap(
+            dict(copy.deepcopy(cfg), semantic=dict(
+                cfg["semantic"], parallel={"point_shard": True})),
+            tmp_path / "ps", **kw)
+        pipe_ps.ovo.detect_and_track_objects(
+            (0, frame[1], frame[2], ()), pipe_ps.slam_backbone.get_map(),
+            frame[3], insert=pipe_ps.slam_backbone.fused_insert_args(frame))
     ok = copy.deepcopy(cfg)
     ok["profile_trace"] = str(tmp_path / "trace")
     ok["semantic"].setdefault("sam", {})["batch"] = 2
