@@ -21,6 +21,7 @@ import torch
 
 from .. import geometry as geo
 from ..ops import segment_mxu
+from ..utils import trace
 from . import instances as inst
 from .instances import InstanceStore, _scalar
 from .map_state import MapState, _scatter_append, strided_unproject
@@ -256,17 +257,22 @@ def associate_keyframe(
     contract: active_cols >= store.next_id). ``w2c``: inv(c2w) when the
     caller has it (a small-matrix inverse on the card may synchronize)."""
     M = binary_maps.shape[0]
-    AR, points, obj, row_valid = _active(map_state, active_rows)
-    seg, matched = match_points(
-        points, row_valid, seg_map, mask_valid, depth, c2w, K, w2c=w2c,
-        match_distance_th=match_distance_th,
-        use_depth_filter=use_depth_filter, rgb_depth_ratio=rgb_depth_ratio)
-    ins_of_mask, n_new, dropped, unassigned_cnt = _votes_and_writeback(
-        map_state, store, seg, obj, AR, mask_valid, track_th, M, active_cols)
-    store, out = mask_level_tail(
-        store, ins_of_mask, n_new, dropped, unassigned_cnt, seg_map,
-        binary_maps, _scalar(kf_id, depth.device),
-        matched.sum(dtype=torch.int32), unbounded_top_k=unbounded_top_k)
+    with trace.span("association.match"):
+        AR, points, obj, row_valid = _active(map_state, active_rows)
+        seg, matched = match_points(
+            points, row_valid, seg_map, mask_valid, depth, c2w, K, w2c=w2c,
+            match_distance_th=match_distance_th,
+            use_depth_filter=use_depth_filter,
+            rgb_depth_ratio=rgb_depth_ratio)
+    with trace.span("association.votes"):
+        ins_of_mask, n_new, dropped, unassigned_cnt = _votes_and_writeback(
+            map_state, store, seg, obj, AR, mask_valid, track_th, M,
+            active_cols)
+    with trace.span("association.tail"):
+        store, out = mask_level_tail(
+            store, ins_of_mask, n_new, dropped, unassigned_cnt, seg_map,
+            binary_maps, _scalar(kf_id, depth.device),
+            matched.sum(dtype=torch.int32), unbounded_top_k=unbounded_top_k)
     return map_state, store, out
 
 

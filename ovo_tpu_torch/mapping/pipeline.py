@@ -19,7 +19,8 @@ reference's step window -- from the first segment step, for
 ``profile_trace_steps`` (default 3) more steps, or to the end of the run --
 with ``torch.profiler`` (CUDA activity on the card, CPU activity on the
 CPU) and writes a Chrome trace there: PyTorch's format, where the JAX
-package writes ``jax.profiler``'s.
+package writes ``jax.profiler``'s, with the program's spans and counters
+of the window (``utils/trace.py``) on a process track of their own.
 
 Backbones: ``vanilla`` (GT poses), ``orbslam*`` (the native tracker's
 poses, mapping on its keyframes) and ``gaussian_slam`` (poses by rendering
@@ -51,6 +52,7 @@ import torch
 from .. import resolve_device
 from ..slam import get_slam_backbone
 from ..utils import io as io_utils
+from ..utils import trace
 from ..utils.logging import Logger
 from .map_state import MapState
 from .semantic import SemanticMapper
@@ -322,8 +324,10 @@ class OVOSemMap:
         self._profiler.stop()
         out = Path(self.profile_trace)
         out.mkdir(parents=True, exist_ok=True)
-        self._profiler.export_chrome_trace(str(
-            out / f"{time.strftime('%Y_%m_%d_%H_%M_%S')}.pt.trace.json"))
+        path = out / f"{time.strftime('%Y_%m_%d_%H_%M_%S')}.pt.trace.json"
+        self._profiler.export_chrome_trace(str(path))
+        # the program's spans and counters of the window, on the same clock
+        trace.export_chrome(path)
         self._profiler = None
         self._trace_state = -1
 
@@ -348,7 +352,9 @@ class OVOSemMap:
                 for fid in schedule:
                     if stop.is_set():
                         return
-                    prefetch.put((fid, self.dataset[fid]))
+                    with trace.span("data.read", fid):
+                        item = self.dataset[fid]
+                    prefetch.put((fid, item))
             except BaseException as exc:  # noqa: BLE001 -- re-raised below
                 prefetch.put(exc)
                 return
@@ -358,7 +364,8 @@ class OVOSemMap:
         producer.start()
         try:
             while True:
-                item = prefetch.get()
+                with trace.span("loop.data_wait"):
+                    item = prefetch.get()
                 if item is None:
                     break
                 if isinstance(item, BaseException):
@@ -376,6 +383,13 @@ class OVOSemMap:
 
         if self._trace_state > 0:
             self._stop_trace()
+        with trace.span("run.tail"):
+            self._run_tail(t_start, spf)
+        self.save_representation()
+
+    def _run_tail(self, t_start: float, spf) -> None:
+        """After the frame loop: the last flush and descriptors, the
+        stream's close and the run's stats."""
         if self.ovo._pending:
             # sam.batch > 1: segment and associate the buffered keyframes
             new_state = self.ovo.flush_segmentation(
@@ -397,72 +411,76 @@ class OVOSemMap:
                                        "n_dropped_masks": dropped})
         self.logger.write_stats()
         self.logger.print_final_stats()
-        self.save_representation()
 
     def _step(self, frame_id: int, frame_data) -> float:
         """One scheduled frame; returns its semantic seconds (0 if none)."""
-        self.slam_backbone.track_camera(frame_data)
-        c2w = self.slam_backbone.get_c2w(frame_id)
-        if c2w is None or not (frame_data[2] > 0).any():
-            return 0.0
-        slam_module = self.config["slam"]["slam_module"]
-        # the ORB tier decides on every frame whether it maps (its tracker's
-        # keyframes)
-        do_map = (frame_id % self.map_every == 0
-                  or slam_module.startswith("orbslam"))
-        do_seg = frame_id % self.segment_every == 0
-        # mapping on the segment cadence fuses the vanilla insert into the
-        # association (one pass, shared projection and gathers)
-        fuse_this = (do_map and do_seg and slam_module == "vanilla"
-                     and self.slam_backbone.supports_fused_insert
-                     and self.ovo.sam_batch == 1
-                     and not self.ovo.point_shard)
-        t_lc = 0.0
-        if do_map and not fuse_this:
-            self.slam_backbone.map(frame_data, c2w)
-            if self.slam_backbone.map_updated:
-                t_lc = self._loop_closure()
-        if not do_seg:
-            return t_lc
-        if self.profile_trace and self._trace_state == 0:
-            self._start_trace()
-        t0 = time.time()
-        image = frame_data[4] if len(frame_data) == 5 else frame_data[1]
-        if (self.dataset.height != image.shape[0]
-                or self.dataset.width != image.shape[1]):
-            ratio = (image.shape[0] / self.dataset.dataset_config["H"],
-                     image.shape[1] / self.dataset.dataset_config["W"],
-                     self.dataset.crop_edge)
-        else:
-            ratio = ()
-        scene_data = (frame_id, image, frame_data[2], ratio)
-        if fuse_this:
-            # growth first (it may swap the state buffers), then the handle
-            insert = self.slam_backbone.fused_insert_args(frame_data)
-            new_state = self.ovo.detect_and_track_objects(
-                scene_data, self.slam_backbone.get_map(), c2w, insert=insert)
-            if new_state is None:
-                # no masks segmented: the frame must still map
+        with trace.span("step", frame_id):
+            with trace.span("backbone.track"):
+                self.slam_backbone.track_camera(frame_data)
+            c2w = self.slam_backbone.get_c2w(frame_id)
+            if c2w is None or not (frame_data[2] > 0).any():
+                return 0.0
+            slam_module = self.config["slam"]["slam_module"]
+            # the ORB tier decides on every frame whether it maps (its
+            # tracker's keyframes)
+            do_map = (frame_id % self.map_every == 0
+                      or slam_module.startswith("orbslam"))
+            do_seg = frame_id % self.segment_every == 0
+            # mapping on the segment cadence fuses the vanilla insert into the
+            # association (one pass, shared projection and gathers)
+            fuse_this = (do_map and do_seg and slam_module == "vanilla"
+                         and self.slam_backbone.supports_fused_insert
+                         and self.ovo.sam_batch == 1
+                         and not self.ovo.point_shard)
+            t_lc = 0.0
+            if do_map and not fuse_this:
                 self.slam_backbone.map(frame_data, c2w)
+                if self.slam_backbone.map_updated:
+                    t_lc = self._loop_closure()
+            if not do_seg:
+                return t_lc
+            if self.profile_trace and self._trace_state == 0:
+                self._start_trace()
+            t0 = time.time()
+            image = frame_data[4] if len(frame_data) == 5 else frame_data[1]
+            if (self.dataset.height != image.shape[0]
+                    or self.dataset.width != image.shape[1]):
+                ratio = (image.shape[0] / self.dataset.dataset_config["H"],
+                         image.shape[1] / self.dataset.dataset_config["W"],
+                         self.dataset.crop_edge)
             else:
-                self.slam_backbone.update_pcd_obj_ids(new_state)
-                self.slam_backbone.post_insert()
-        else:
-            new_state = self.ovo.detect_and_track_objects(
-                scene_data, self.slam_backbone.get_map(), c2w)
-            if new_state is not None:
-                self.slam_backbone.update_pcd_obj_ids(new_state)
-        self.ovo.compute_semantic_info()
-        self.logger.log_memory_usage(frame_id)
-        t_sem = time.time() - t0
-        if self.pcd_queue is not None:
-            self._stream_frame(c2w)
-            self._serve_stream_query()
-        if self.profile_trace and self._trace_state >= 0:
-            self._trace_state += 1
-            if self._trace_state > self.profile_trace_steps:
-                self._stop_trace()
-        return t_sem + t_lc
+                ratio = ()
+            scene_data = (frame_id, image, frame_data[2], ratio)
+            if fuse_this:
+                # growth first (it may swap the state buffers), then the handle
+                insert = self.slam_backbone.fused_insert_args(frame_data)
+                new_state = self.ovo.detect_and_track_objects(
+                    scene_data, self.slam_backbone.get_map(), c2w,
+                    insert=insert)
+                if new_state is None:
+                    # no masks segmented: the frame must still map
+                    self.slam_backbone.map(frame_data, c2w)
+                else:
+                    self.slam_backbone.update_pcd_obj_ids(new_state)
+                    self.slam_backbone.post_insert()
+            else:
+                new_state = self.ovo.detect_and_track_objects(
+                    scene_data, self.slam_backbone.get_map(), c2w)
+                if new_state is not None:
+                    self.slam_backbone.update_pcd_obj_ids(new_state)
+            with trace.span("semantic_info"):
+                self.ovo.compute_semantic_info()
+            with trace.span("logger.memory"):
+                self.logger.log_memory_usage(frame_id)
+            t_sem = time.time() - t0
+            if self.pcd_queue is not None:
+                self._stream_frame(c2w)
+                self._serve_stream_query()
+            if self.profile_trace and self._trace_state >= 0:
+                self._trace_state += 1
+                if self._trace_state > self.profile_trace_steps:
+                    self._stop_trace()
+            return t_sem + t_lc
 
     def _loop_closure(self) -> float:
         """The backbone rebuilt its map (a SLAM big change): the semantic

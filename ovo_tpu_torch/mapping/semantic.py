@@ -48,7 +48,6 @@ Pluggable backends (duck-typed):
 """
 from __future__ import annotations
 
-import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -56,6 +55,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device, to_device
+from ..utils import trace
 from ..utils.async_scalar import AsyncScalar
 from . import instances as inst
 from .association import associate_and_insert_keyframe, associate_keyframe
@@ -198,9 +198,10 @@ class SemanticMapper:
             if len(self._pending) < self.sam_batch:
                 return None
             return self.flush_segmentation(map_state)
-        t0 = time.time()
-        seg_map, binary_maps, mask_valid = self.mask_source.get_masks(
-            image, frame_id)
+        with trace.span("mask_source", frame_id, keep=self.log):
+            seg_map, binary_maps, mask_valid = self.mask_source.get_masks(
+                image, frame_id)
+        trace.count("keyframes")
         if seg_map is None:
             print(f"No mask segmented in {frame_id}!")
             return None
@@ -215,10 +216,9 @@ class SemanticMapper:
             self._valid_req.append((frame_id, AsyncScalar(mask_valid.any())))
         # upload the frame once: the deferred embedder reads it later
         image_dev = to_device(image, self.device)
-        t_sam = time.time() - t0
         return self._associate(frame_id, image_dev, depth, rgb_depth_ratio,
                                c2w, seg_map, binary_maps, mask_valid,
-                               map_state, t_sam, insert=insert)
+                               map_state, insert=insert)
 
     def _nid_upper_bound(self, m_masks: int) -> int:
         """Host-known bound >= store.next_id with no sync: the last
@@ -232,9 +232,12 @@ class SemanticMapper:
         while len(self._nid_reqs) > 1:
             req, kf_at = self._nid_reqs.popleft()
             if kf_at > self._nid_known[1]:
-                self._nid_known = (req.get(), kf_at)
+                with trace.wait("next_id"):
+                    self._nid_known = (req.get(), kf_at)
         for frame_id, req in self._valid_req:
-            if not req.get():
+            with trace.wait("valid_any", frame_id):
+                any_valid = req.get()
+            if not any_valid:
                 print(f"No mask segmented in {frame_id}!")
         self._valid_req = []
 
@@ -245,34 +248,70 @@ class SemanticMapper:
         if not self._pending:
             return None
         pending, self._pending = self._pending, []
-        t0 = time.time()
         images = np.stack([p[1] for p in pending])
-        seg_b, bmaps_b, valid_b = self.mask_source.get_masks_batch(
-            images, [p[0] for p in pending])
+        with trace.span("mask_source", pending[0][0], len(pending),
+                        keep=self.log):
+            seg_b, bmaps_b, valid_b = self.mask_source.get_masks_batch(
+                images, [p[0] for p in pending])
+        trace.count("keyframes", len(pending))
         # one upload of the frames: the deferred embedder reads them
         images_dev = to_device(images, self.device)
-        t_sam = time.time() - t0
         out = None
         for j, (frame_id, _, depth, ratio, c2w) in enumerate(pending):
-            if not keyframe_has_mask(valid_b[j]):
+            with trace.wait("has_mask", frame_id):
+                has_mask = keyframe_has_mask(valid_b[j])
+            if not has_mask:
                 print(f"No mask segmented in {frame_id}!")
                 continue
             new_state = self._associate(
                 frame_id, images_dev[j], depth, ratio, c2w, seg_b[j],
-                bmaps_b[j], valid_b[j], map_state if out is None else out,
-                t_sam / len(pending))
+                bmaps_b[j], valid_b[j], map_state if out is None else out)
             if new_state is not None:
                 out = new_state
         return out
 
     def _associate(self, frame_id, image, depth, rgb_depth_ratio, c2w,
-                   seg_map, binary_maps, mask_valid, map_state, t_sam,
+                   seg_map, binary_maps, mask_valid, map_state,
                    insert: Optional[Dict[str, Any]] = None
                    ) -> Optional[MapState]:
+        log = self.log and self.logger is not None
+        with trace.span("association", frame_id, keep=self.log):
+            map_state, match, last_id = self._associate_keyframe(
+                frame_id, image, depth, rgb_depth_ratio, c2w, seg_map,
+                binary_maps, mask_valid, map_state, insert, log)
+            if log:
+                with trace.wait("log"):
+                    n_matched = int(match.n_matched)
+                    n_obj = int(self.store.next_id) - last_id
+                    dropped = int(match.n_dropped_masks)
+            self._drain_async()
+        if log:
+            stats = {
+                "frame_id": frame_id,
+                "n_obj": [n_obj],
+                "n_matches": n_matched,
+                "t_sam": round(trace.last_seconds("mask_source", per_kf=True),
+                               2),
+                "t_obj": round(trace.last_seconds("association"), 3),
+            }
+            if dropped:
+                stats["n_dropped_masks"] = dropped
+                print(f"WARNING: {dropped} masks dropped at instance "
+                      f"capacity {self.store.capacity} in frame {frame_id}")
+            self.logger.log_ovo_stats(stats, print_output=True)
+        return map_state
+
+    def _associate_keyframe(self, frame_id, image, depth, rgb_depth_ratio,
+                            c2w, seg_map, binary_maps, mask_valid, map_state,
+                            insert, log):
+        """The association proper: store growth, uploads, the device work
+        and the keyframe's bookkeeping. Returns (map state, match, the
+        exact next id before it under ``log``, else None)."""
         M = binary_maps.shape[0]
         dev = self.device
-        if self.log and self.logger is not None:
-            last_id = int(self.store.next_id)     # exact, for the stats
+        if log:
+            with trace.wait("log"):
+                last_id = int(self.store.next_id)     # exact, for the stats
             nid_ub = last_id
             self._nid_reqs.clear()
             self._nid_known = (last_id, self.kf_id)
@@ -285,19 +324,22 @@ class SemanticMapper:
                           1 << (nid_ub + M - 1).bit_length())
             print(f"[semantic] growing instance store "
                   f"{self.store.capacity} -> {new_cap} (next_id<={nid_ub})")
-            self.store = inst.grow_instance_store(self.store, new_cap)
-        t0 = time.time()
+            with trace.span("association.grow"):
+                self.store = inst.grow_instance_store(self.store, new_cap)
+            trace.count("store_grows")
+            trace.gauge("store_capacity", new_cap)
         ratio = tuple(rgb_depth_ratio) if len(rgb_depth_ratio) else None
         # vote-matrix column bucket: next_id + M always fits
         a_cols = 1 << max(nid_ub + M - 1, 127).bit_length()
         a_cols = a_cols if a_cols < self.store.capacity else None
-        depth_d = to_device(depth, dev, torch.float32)
-        c2w_np = np.asarray(c2w, np.float32)
-        c2w_d = to_device(c2w_np, dev)
-        kf = torch.full((), self.kf_id, dtype=torch.int32, device=dev)
-        kw = dict(w2c=to_device(np.linalg.inv(c2w_np).astype(np.float32),
-                                dev),
-                  match_distance_th=self.match_distance_th,
+        trace.gauge("assoc_active_cols", a_cols or self.store.capacity)
+        with trace.span("association.upload"):
+            depth_d = to_device(depth, dev, torch.float32)
+            c2w_np = np.asarray(c2w, np.float32)
+            c2w_d = to_device(c2w_np, dev)
+            kf = torch.full((), self.kf_id, dtype=torch.int32, device=dev)
+            w2c = to_device(np.linalg.inv(c2w_np).astype(np.float32), dev)
+        kw = dict(w2c=w2c, match_distance_th=self.match_distance_th,
                   track_th=self.track_th,
                   use_depth_filter=self.use_depth_filter,
                   unbounded_top_k=self.unbounded_top_k,
@@ -306,25 +348,29 @@ class SemanticMapper:
             if self.point_shard:
                 raise ValueError("the fused insert is single-device "
                                  "(point_shard associates in two steps)")
-            map_state, self.store, match = associate_and_insert_keyframe(
-                map_state, self.store, seg_map, binary_maps, mask_valid,
-                to_device(insert["colors"], dev), depth_d, c2w_d,
-                self.cam_intrinsics, kf,
-                insert_match_th=insert["insert_match_th"],
-                k_pooling=insert["k_pooling"], downscale=insert["downscale"],
-                active_rows=insert.get("active_rows"), **kw)
+            with trace.span("association.fused"):
+                map_state, self.store, match = associate_and_insert_keyframe(
+                    map_state, self.store, seg_map, binary_maps, mask_valid,
+                    to_device(insert["colors"], dev), depth_d, c2w_d,
+                    self.cam_intrinsics, kf,
+                    insert_match_th=insert["insert_match_th"],
+                    k_pooling=insert["k_pooling"],
+                    downscale=insert["downscale"],
+                    active_rows=insert.get("active_rows"), **kw)
         elif self.point_shard:
             from ..parallel.shard import (gather_point_blocks,
                                           sharded_associate_keyframe)
 
-            map_state, self.store, match = sharded_associate_keyframe(
-                self.mesh, map_state, self.store, seg_map, binary_maps,
-                mask_valid, depth_d, c2w_d, self.cam_intrinsics, kf, **kw)
-            # each rank relabelled its own block of rows; the map stays
-            # replicated, so the blocks are gathered once a keyframe: the
-            # explicit form of the reshard GSPMD inserts in the reference
-            # before the next insert program
-            gather_point_blocks(self.mesh, map_state.obj_ids)
+            with trace.span("association.sharded"):
+                map_state, self.store, match = sharded_associate_keyframe(
+                    self.mesh, map_state, self.store, seg_map, binary_maps,
+                    mask_valid, depth_d, c2w_d, self.cam_intrinsics, kf,
+                    **kw)
+                # each rank relabelled its own block of rows; the map stays
+                # replicated, so the blocks are gathered once a keyframe:
+                # the explicit form of the reshard GSPMD inserts in the
+                # reference before the next insert program
+                gather_point_blocks(self.mesh, map_state.obj_ids)
         else:
             map_state, self.store, match = associate_keyframe(
                 map_state, self.store, seg_map, binary_maps, mask_valid,
@@ -337,33 +383,19 @@ class SemanticMapper:
                  fused_maps=match.fused_maps, image=image, kf_id=self.kf_id))
         self.frame_ids.append(frame_id)
         if self.debug_info:
-            self.kf_records[self.kf_id] = (match.ins_ids.cpu().numpy(),
-                                           match.areas.cpu().numpy())
-            self.kf_ins_maps[self.kf_id] = instance_pixel_map(
-                match.fused_maps, match.ins_ids, match.keep).cpu().numpy()
+            with trace.wait("debug"):
+                self.kf_records[self.kf_id] = (match.ins_ids.cpu().numpy(),
+                                               match.areas.cpu().numpy())
+                self.kf_ins_maps[self.kf_id] = instance_pixel_map(
+                    match.fused_maps, match.ins_ids,
+                    match.keep).cpu().numpy()
         self.kf_id += 1
-
-        if self.log and self.logger is not None:
-            n_matched = int(match.n_matched)
-            stats = {
-                "frame_id": frame_id,
-                "n_obj": [int(self.store.next_id) - last_id],
-                "n_matches": n_matched,
-                "t_sam": round(t_sam, 2),
-                "t_obj": round(time.time() - t0, 3),
-            }
-            dropped = int(match.n_dropped_masks)
-            if dropped:
-                stats["n_dropped_masks"] = dropped
-                print(f"WARNING: {dropped} masks dropped at instance "
-                      f"capacity {self.store.capacity} in frame {frame_id}")
-            self.logger.log_ovo_stats(stats, print_output=True)
-        self._drain_async()
-        return map_state
+        return map_state, match, last_id
 
     def n_dropped_masks_total(self) -> int:
         """Masks ever lost to instance-capacity overflow (one device read)."""
-        return int(self._dropped_dev)
+        with trace.wait("dropped"):
+            return int(self._dropped_dev)
 
     # ------------------------------------------------------------------
     # Deferred CLIP extraction
@@ -387,27 +419,46 @@ class SemanticMapper:
 
     def _compute_semantic_info(self, take: int = 1) -> None:
         kfs = [self.keyframes_queue.popleft() for _ in range(take)]
-        kf_ts = [torch.full((), kf["kf_id"], dtype=torch.int32,
-                            device=self.device) for kf in kfs]
-        keeps = []
-        for kf, kf_t in zip(kfs, kf_ts):
-            keep = kf["keep"]
-            if not self.unbounded_top_k:
-                # the kf may have left an instance's top-k during the delay
-                keep = keep & inst.is_top_kf(self.store, kf["ins_ids"], kf_t)
-            keeps.append(keep)
-        if self.debug_info or self.log or not self.unbounded_top_k:
-            # debug and log runs and top-k gating keep the exact
-            # skip-on-empty check
-            any_keep = [bool(k.any()) for k in keeps]
-            if not any(any_keep):
+        with trace.span("embedder", self.frame_ids[kfs[0]["kf_id"]], take,
+                        keep=self.log):
+            if not self._embed_keyframes(kfs):
                 return
-        else:
-            # hot path: embed optimistically -- keep=False rows are dropped
-            # by update_descriptors, so an all-empty keyframe wastes one
-            # embed
-            any_keep = [True] * len(keeps)
-        t0 = time.time()
+        if self.log and self.logger is not None:
+            t_up = trace.last_seconds("embedder.update")
+            self.logger.log_ovo_stats({
+                "frame_id": self.frame_ids[kfs[-1]["kf_id"]],
+                "t_clip": round(trace.last_seconds("embedder") - t_up, 2),
+                "t_up": round(t_up, 3),
+            }, print_output=True)
+
+    def _embed_keyframes(self, kfs) -> bool:
+        """The top-k gate, the embedder and the descriptor update of the
+        popped keyframes; False when no keyframe had a mask to embed."""
+        with trace.span("embedder.gate"):
+            kf_ts = [torch.full((), kf["kf_id"], dtype=torch.int32,
+                                device=self.device) for kf in kfs]
+            keeps = []
+            for kf, kf_t in zip(kfs, kf_ts):
+                keep = kf["keep"]
+                if not self.unbounded_top_k:
+                    # the kf may have left an instance's top-k during the
+                    # delay
+                    keep = keep & inst.is_top_kf(self.store, kf["ins_ids"],
+                                                 kf_t)
+                keeps.append(keep)
+            if self.debug_info or self.log or not self.unbounded_top_k:
+                # debug and log runs and top-k gating keep the exact
+                # skip-on-empty check
+                with trace.wait("keep_any"):
+                    any_keep = [bool(k.any()) for k in keeps]
+                if not any(any_keep):
+                    return False
+            else:
+                # hot path: embed optimistically -- keep=False rows are
+                # dropped by update_descriptors, so an all-empty keyframe
+                # wastes one embed
+                any_keep = [True] * len(keeps)
+        trace.count("images_embedded", sum(any_keep))
         if (len(kfs) > 1 and all(any_keep)
                 and hasattr(self.embedder, "embed_masks_batch")):
             batch = (torch.stack([kf["image"] for kf in kfs]),
@@ -420,25 +471,22 @@ class SemanticMapper:
                 self.embedder.embed_masks(kf["image"], kf["fused_maps"], k)
                 if ok else None
                 for kf, k, ok in zip(kfs, keeps, any_keep)]
-        t_clip = time.time() - t0
-        t0 = time.time()
-        for kf, kf_t, keep, ok, descs in zip(kfs, kf_ts, keeps, any_keep,
-                                             descs_list):
-            if not ok:
-                continue
-            descs32 = descs.float()
-            self.store = inst.update_descriptors(
-                self.store, kf["ins_ids"], descs32, kf_t, keep,
-                fusion=self.fusion)
-            self.kf_descriptors[kf["kf_id"]] = (kf["ins_ids"], descs32, keep)
-        if self.log and self.logger is not None:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.logger.log_ovo_stats({
-                "frame_id": self.frame_ids[kfs[-1]["kf_id"]],
-                "t_clip": round(t_clip, 2),
-                "t_up": round(time.time() - t0, 3),
-            }, print_output=True)
+        with trace.span("embedder.update", keep=self.log):
+            for kf, kf_t, keep, ok, descs in zip(kfs, kf_ts, keeps, any_keep,
+                                                 descs_list):
+                if not ok:
+                    continue
+                descs32 = descs.float()
+                self.store = inst.update_descriptors(
+                    self.store, kf["ins_ids"], descs32, kf_t, keep,
+                    fusion=self.fusion)
+                self.kf_descriptors[kf["kf_id"]] = (kf["ins_ids"], descs32,
+                                                    keep)
+            if (self.log and self.logger is not None
+                    and self.device.type == "cuda"):
+                with trace.wait("log"):
+                    torch.cuda.synchronize(self.device)
+        return True
 
     def _dp_embed_batch(self, imgs, maps, keepb) -> torch.Tensor:
         """Data-parallel keyframe embedding: the batch padded to the

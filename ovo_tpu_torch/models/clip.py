@@ -30,6 +30,7 @@ from .. import resolve_device, to_device
 from ..ops.resize import resize_channels_last, scale_and_translate
 from ..ops.similarity import (_normalize, clip_cosine_similarity,
                               fuse_clips, siglip_similarity)
+from ..utils import trace
 from . import text as text_mod
 from . import vit as vit_mod
 from .text import TextConfig
@@ -368,22 +369,26 @@ class CropCLIPEmbedder(BaseCLIPEmbedder):
     def embed_masks(self, image, binary_maps, valid) -> torch.Tensor:
         """image (H, W, 3) u8 (host or device); binary_maps (M, H, W) bool
         -> (M, clip_dim) f32 unit descriptors."""
-        img = to_device(image, self.device).float() / 255.0
-        masks = to_device(binary_maps, self.device)
-        seg_imgs, bbox_imgs = roi_crops(img, masks, out_size=self.mask_res)
-        clip_seg = _normalize(self.model.encode_image(seg_imgs))
-        if self.embed_type == "vanilla":
-            return clip_seg
-        clip_bbox = _normalize(self.model.encode_image(bbox_imgs))
-        clip_g = _normalize(self.model.encode_image(img[None]))
-        clip_g = clip_g.expand_as(clip_seg)
-        if self.embed_type == "learned":
-            if self.merger is None:
-                raise ValueError("learned fusion needs a merger")
-            return self.merger(torch.stack([clip_g, clip_seg, clip_bbox],
-                                           dim=1))
-        return fuse_clips(clip_g, clip_seg, clip_bbox, self.embed_type,
-                          self.w_masked, self.w_global)
+        with trace.span("embedder.crops"):
+            img = to_device(image, self.device).float() / 255.0
+            masks = to_device(binary_maps, self.device)
+            seg_imgs, bbox_imgs = roi_crops(img, masks,
+                                            out_size=self.mask_res)
+        with trace.span("embedder.tower"):
+            clip_seg = _normalize(self.model.encode_image(seg_imgs))
+            if self.embed_type == "vanilla":
+                return clip_seg
+            clip_bbox = _normalize(self.model.encode_image(bbox_imgs))
+            clip_g = _normalize(self.model.encode_image(img[None]))
+            clip_g = clip_g.expand_as(clip_seg)
+        with trace.span("embedder.merger"):
+            if self.embed_type == "learned":
+                if self.merger is None:
+                    raise ValueError("learned fusion needs a merger")
+                return self.merger(torch.stack([clip_g, clip_seg, clip_bbox],
+                                               dim=1))
+            return fuse_clips(clip_g, clip_seg, clip_bbox, self.embed_type,
+                              self.w_masked, self.w_global)
 
 
 def build_clip_embedder(clip_cfg: Dict[str, Any], embed_type: str,

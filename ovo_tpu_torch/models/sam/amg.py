@@ -26,6 +26,7 @@ import torch
 
 from ... import resolve_device, to_device
 from ...ops.masks import mask_nms, masks_to_seg_map
+from ...utils import trace
 from .model import SAMModel
 
 
@@ -255,21 +256,27 @@ def _amg_program(model: SAMModel, image: torch.Tensor, points: torch.Tensor,
                  **kw):
     """One keyframe's masks: (seg (H, W) i32, bmaps (M, H, W) bool,
     valid (M,), stability (M,) with -inf at invalid slots)."""
-    return _amg_masks(model, *model.encode_image(_preprocess(model, image)),
-                      points, **kw)
+    with trace.span("mask_source.encode"):
+        encoded = model.encode_image(_preprocess(model, image))
+    return _amg_masks(model, *encoded, points, **kw)
 
 
 def _amg_program_batch(model: SAMModel, images: torch.Tensor,
-                       points: torch.Tensor, **kw):
+                       points: torch.Tensor, frame_ids=None, **kw):
     """A micro-batch of keyframes (B, H, W, 3): the trunk and the neck run
     once over the B images, then each image's masks as
-    :func:`_amg_program`'s; the four outputs stacked on a leading B."""
-    embeds, high_res = model.encode_images(torch.cat(
-        [_preprocess(model, img) for img in images]))
+    :func:`_amg_program`'s; the four outputs stacked on a leading B.
+    ``frame_ids``: the keyframes', for the program's spans."""
+    B = images.shape[0]
+    with trace.span("mask_source.encode", n_kf=B):
+        embeds, high_res = model.encode_images(torch.cat(
+            [_preprocess(model, img) for img in images]))
     outs = [_amg_masks(model, embeds[b],
                        None if high_res is None else [h[b] for h in high_res],
-                       points, **kw) for b in range(images.shape[0])]
-    return tuple(torch.stack(o) for o in zip(*outs))
+                       points, frame_id=None if frame_ids is None
+                       else frame_ids[b], **kw) for b in range(B)]
+    with trace.span("mask_source.stack", n_kf=B):
+        return tuple(torch.stack(o) for o in zip(*outs))
 
 
 def _preprocess(model: SAMModel, image: torch.Tensor) -> torch.Tensor:
@@ -282,75 +289,86 @@ def _amg_masks(model: SAMModel, image_embed: torch.Tensor, high_res,
                points: torch.Tensor, *, pred_iou_thresh, stability_thresh,
                stability_offset, mask_threshold, box_nms_thresh, nms_iou_th,
                nms_score_th, nms_inner_th, max_masks, candidates, min_area,
-               gate_prompts=None, out_hw: Tuple[int, int]):
+               gate_prompts=None, out_hw: Tuple[int, int], frame_id=None):
     """The masks of one encoded image (the decoder onwards); ``out_hw`` is
-    the original image's size."""
+    the original image's size. ``frame_id``: the keyframe's, for the
+    program's spans (the enclosing span's when None)."""
     sam1 = model.cfg.family == "sam1"
-    if sam1:
-        # the grid lives in the image's [0, 1] box, the top-left (nh, nw)
-        # of the padded square
-        sx, sy = model.point_scale(*out_hw)
-        points = torch.stack([points[:, 0] * sx, points[:, 1] * sy], dim=1)
-    # multimask outputs only (channels 1:4); the gate keeps the top prompts
-    # by predicted IoU for the upscale tail
-    out = model.decode_grid(image_embed, high_res, points,
-                            mask_channels=(1, 2, 3),
-                            top_prompts=gate_prompts)
-    logits = out["masks"]                                # (P, 3, Hm, Wm)
-    P, C, Hm, Wm = logits.shape
-    logits = logits.reshape(P * C, Hm, Wm)
-    iou = out["iou"].reshape(P * C)
-    logits_raw = logits          # the upsample reads the unsuppressed ones
-    if sam1:
-        # the pad is suppressed for scoring only (the official AMG crops
-        # before it scores); the upsample's composed matrices exclude the
-        # pad and interpolate the real logits at the crop's edge
-        nh, nw = model.resized_hw(*out_hw)
-        s = model.cfg.image_size
-        vh, vw = -(-nh * Hm // s), -(-nw * Wm // s)     # ceil at logit res
-        dev = logits.device
-        ok = ((torch.arange(Hm, device=dev) < vh)[:, None]
-              & (torch.arange(Wm, device=dev) < vw)[None, :])
-        logits = logits.masked_fill(~ok, mask_threshold - 1e4)
-        area_gate = min_area_cells(min_area, vh * vw, out_hw)
-    else:
-        area_gate = min_area_cells(min_area, Hm * Wm, out_hw)
+    with trace.span("mask_source.decode", frame_id):
+        if sam1:
+            # the grid lives in the image's [0, 1] box, the top-left
+            # (nh, nw) of the padded square
+            sx, sy = model.point_scale(*out_hw)
+            points = torch.stack([points[:, 0] * sx, points[:, 1] * sy],
+                                 dim=1)
+        # multimask outputs only (channels 1:4); the gate keeps the top
+        # prompts by predicted IoU for the upscale tail
+        out = model.decode_grid(image_embed, high_res, points,
+                                mask_channels=(1, 2, 3),
+                                top_prompts=gate_prompts)
+        logits = out["masks"]                            # (P, 3, Hm, Wm)
+        P, C, Hm, Wm = logits.shape
+        logits = logits.reshape(P * C, Hm, Wm)
+        iou = out["iou"].reshape(P * C)
+        logits_raw = logits      # the upsample reads the unsuppressed ones
+    with trace.span("mask_source.select", frame_id):
+        if sam1:
+            # the pad is suppressed for scoring only (the official AMG crops
+            # before it scores); the upsample's composed matrices exclude
+            # the pad and interpolate the real logits at the crop's edge
+            nh, nw = model.resized_hw(*out_hw)
+            s = model.cfg.image_size
+            vh, vw = -(-nh * Hm // s), -(-nw * Wm // s)  # ceil at logit res
+            dev = logits.device
+            ok = ((torch.arange(Hm, device=dev) < vh)[:, None]
+                  & (torch.arange(Wm, device=dev) < vw)[None, :])
+            logits = logits.masked_fill(~ok, mask_threshold - 1e4)
+            area_gate = min_area_cells(min_area, vh * vw, out_hw)
+        else:
+            area_gate = min_area_cells(min_area, Hm * Wm, out_hw)
 
-    stab = stability_score(logits, mask_threshold, stability_offset)
-    masks = logits > mask_threshold
-    area = masks.sum(dim=(1, 2))
-    keep = ((iou > pred_iou_thresh) & (stab >= stability_thresh)
-            & (area > area_gate))
+        stab = stability_score(logits, mask_threshold, stability_offset)
+        masks = logits > mask_threshold
+        area = masks.sum(dim=(1, 2))
+        keep = ((iou > pred_iou_thresh) & (stab >= stability_thresh)
+                & (area > area_gate))
 
-    # top-C candidates by predicted IoU (a fixed axis for the NMS stages)
-    neg = torch.full_like(iou, float("-inf"))
-    sel = torch.argsort(-torch.where(keep, iou, neg), stable=True)[:candidates]
-    masks_c = masks[sel]
-    iou_c = iou[sel]
-    stab_c = stab[sel]
-    valid_c = keep[sel]
-    valid_c = valid_c & greedy_box_nms(mask_boxes(masks_c), iou_c, valid_c,
-                                       box_nms_thresh)
-    # OVO's mask NMS with scores = stability * iou
-    valid_c = valid_c & mask_nms(masks_c, stab_c * iou_c, valid_c,
-                                 iou_thr=nms_iou_th, score_thr=nms_score_th,
-                                 inner_thr=nms_inner_th)
-
-    # final top-M by stability (mask2segmap's order)
-    neg = torch.full_like(stab_c, float("-inf"))
-    m_sel = torch.argsort(-torch.where(valid_c, stab_c, neg),
-                          stable=True)[:max_masks]
-    final_valid = valid_c[m_sel]
-    final_stab = torch.where(final_valid, stab_c[m_sel], neg[m_sel])
-    mats = (tuple(_on_device(_sam1_upsample_matrix,
-                             (n, model.cfg.image_size, crop, dst),
-                             logits.device)
-                  for n, crop, dst in ((Hm, nh, out_hw[0]),
-                                       (Wm, nw, out_hw[1])))
-            if sam1 else None)
-    lg_up = upsample_bilinear_matmul(logits_raw[sel][m_sel], out_hw, mats)
-    bmaps = (lg_up > mask_threshold) & final_valid[:, None, None]
-    seg = masks_to_seg_map(bmaps, final_stab, final_valid)
+        # top-C candidates by predicted IoU (a fixed axis for the NMS
+        # stages)
+        neg = torch.full_like(iou, float("-inf"))
+        sel = torch.argsort(-torch.where(keep, iou, neg),
+                            stable=True)[:candidates]
+        masks_c = masks[sel]
+        iou_c = iou[sel]
+        stab_c = stab[sel]
+        valid_c = keep[sel]
+    with trace.span("mask_source.box_nms", frame_id):
+        valid_c = valid_c & greedy_box_nms(mask_boxes(masks_c), iou_c,
+                                           valid_c, box_nms_thresh)
+    with trace.span("mask_source.mask_nms", frame_id):
+        # OVO's mask NMS with scores = stability * iou
+        valid_c = valid_c & mask_nms(masks_c, stab_c * iou_c, valid_c,
+                                     iou_thr=nms_iou_th,
+                                     score_thr=nms_score_th,
+                                     inner_thr=nms_inner_th)
+    with trace.span("mask_source.upsample", frame_id):
+        # final top-M by stability (mask2segmap's order)
+        neg = torch.full_like(stab_c, float("-inf"))
+        m_sel = torch.argsort(-torch.where(valid_c, stab_c, neg),
+                              stable=True)[:max_masks]
+        final_valid = valid_c[m_sel]
+        final_stab = torch.where(final_valid, stab_c[m_sel], neg[m_sel])
+        mats = (tuple(_on_device(_sam1_upsample_matrix,
+                                 (n, model.cfg.image_size, crop, dst),
+                                 logits.device)
+                      for n, crop, dst in ((Hm, nh, out_hw[0]),
+                                           (Wm, nw, out_hw[1])))
+                if sam1 else None)
+        lg_up = upsample_bilinear_matmul(logits_raw[sel][m_sel], out_hw,
+                                         mats)
+        bmaps = (lg_up > mask_threshold) & final_valid[:, None, None]
+    with trace.span("mask_source.seg_map", frame_id):
+        seg = masks_to_seg_map(bmaps, final_stab, final_valid)
     return seg, bmaps, final_valid, final_stab
 
 
@@ -404,20 +422,23 @@ class AutomaticMaskSource:
     def _small_regions(self, seg, bmaps, valid, stab):
         """The official small-region pass (host), then the seg map again
         from the fixed masks. No-op unless masks changed."""
-        bm, va, changed = postprocess_small_regions_host(
-            bmaps.cpu().numpy(), valid.cpu().numpy(), self.min_area,
-            self.box_nms_thresh)
-        if not changed:
-            return seg, bmaps, valid
-        bmaps = to_device(bm, self.device)
-        valid = to_device(va, self.device)
-        return masks_to_seg_map(bmaps, stab, valid), bmaps, valid
+        with trace.span("mask_source.small_regions"):
+            with trace.wait("small_regions"):
+                host = bmaps.cpu().numpy(), valid.cpu().numpy()
+            bm, va, changed = postprocess_small_regions_host(
+                *host, self.min_area, self.box_nms_thresh)
+            if not changed:
+                return seg, bmaps, valid
+            bmaps = to_device(bm, self.device)
+            valid = to_device(va, self.device)
+            return masks_to_seg_map(bmaps, stab, valid), bmaps, valid
 
     @torch.no_grad()
     def get_masks(self, image, frame_id: Optional[int] = None):
         """image (H, W, 3) u8 (numpy or tensor) -> (seg (H, W) i32, binary
         maps (M, H, W) bool, valid (M,) bool) on the model's device."""
-        img = to_device(image, self.device)
+        with trace.span("mask_source.upload", frame_id):
+            img = to_device(image, self.device)
         h, w = img.shape[:2]
         seg, bmaps, valid, stab = _amg_program(
             self.model, img, self.points, **self._amg_kwargs((h, w)))
@@ -431,10 +452,12 @@ class AutomaticMaskSource:
         map-independent, so batching keeps per-keyframe semantics): images
         (B, H, W, 3) u8 -> (seg (B, H, W), binary maps (B, M, H, W), valid
         (B, M)) on the model's device."""
-        imgs = to_device(images, self.device)
+        with trace.span("mask_source.upload", n_kf=len(images)):
+            imgs = to_device(images, self.device)
         h, w = imgs.shape[1:3]
         seg, bmaps, valid, stab = _amg_program_batch(
-            self.model, imgs, self.points, **self._amg_kwargs((h, w)))
+            self.model, imgs, self.points, frame_ids=frame_ids,
+            **self._amg_kwargs((h, w)))
         if self.min_area and self.min_area_mode == "connected":
             outs = [self._small_regions(seg[b], bmaps[b], valid[b], stab[b])
                     for b in range(seg.shape[0])]

@@ -25,6 +25,7 @@ import torch
 
 from ..ops.masked_pool import masked_single_query_attention
 from ..ops.resize import resize_channels_last, resize_planes
+from ..utils import trace
 from . import vit as vit_mod
 from .clip import BaseCLIPEmbedder, CLIPModel, _normalize
 
@@ -66,13 +67,17 @@ class TextRegionEmbedder(BaseCLIPEmbedder):
             imgs = imgs.float() / 255.0
         masks = to_device(binary_maps, self.device)
         kw = self._program_kwargs(imgs.shape[1], imgs.shape[2])
-        views = [_textregion_views(img, **kw) for img in imgs]
-        tokens = vit_mod.forward_features(
-            self.model.visual, self.model.cfg.vision, torch.cat(views),
-            norm=True).split([len(v) for v in views])
-        return torch.stack([_textregion_pool(
-            self.model.visual, self.model.cfg.vision, tok, m, **kw)
-            for tok, m in zip(tokens, masks)])
+        with trace.span("embedder.tower", n_kf=len(imgs)):
+            views = [_textregion_views(img, **kw) for img in imgs]
+            tokens = vit_mod.forward_features(
+                self.model.visual, self.model.cfg.vision, torch.cat(views),
+                norm=True).split([len(v) for v in views])
+        pooled = []
+        for tok, m in zip(tokens, masks):
+            with trace.span("embedder.pool"):
+                pooled.append(_textregion_pool(
+                    self.model.visual, self.model.cfg.vision, tok, m, **kw))
+        return torch.stack(pooled)
 
     def _program_kwargs(self, h: int, w: int) -> dict:
         ch, cw = self._crop_layout(h, w)
@@ -99,9 +104,11 @@ class TextRegionEmbedder(BaseCLIPEmbedder):
 def _textregion_program(visual: vit_mod.VisionTransformer, cfg,
                         image: torch.Tensor, masks: torch.Tensor,
                         **kw) -> torch.Tensor:
-    inputs = _textregion_views(image, **kw)
-    tokens = vit_mod.forward_features(visual, cfg, inputs, norm=True)
-    return _textregion_pool(visual, cfg, tokens, masks, **kw)
+    with trace.span("embedder.tower"):
+        inputs = _textregion_views(image, **kw)
+        tokens = vit_mod.forward_features(visual, cfg, inputs, norm=True)
+    with trace.span("embedder.pool"):
+        return _textregion_pool(visual, cfg, tokens, masks, **kw)
 
 
 def _textregion_views(image: torch.Tensor, *, mean: torch.Tensor,

@@ -9,7 +9,9 @@ caller builds every kernel up front with :func:`build_all` (all ``nvcc``
 processes started together).
 
 Every wrapper counts its kernel launches here (:func:`count_launch`), so a
-run can show that the main path went through the kernels. A wrapper that
+run can show that the main path went through the kernels; while a profiler
+runs they are also counted under the innermost program span
+(``utils/trace.py``, ``port_launches.<span>``). A wrapper that
 calls its C entry point through an :class:`Entry` pays for the ctypes
 signature once, when the library loads, not on every launch.
 """
@@ -26,6 +28,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence
 
 import torch
+
+from ..utils import trace
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ovo_tpu_torch"
@@ -50,6 +54,7 @@ _launches: Dict[str, int] = {name: 0 for name in LAUNCH_NAMES}
 
 def count_launch(name: str) -> None:
     _launches[name] += 1
+    trace.count_launch()
 
 
 def launch_counts() -> Dict[str, int]:

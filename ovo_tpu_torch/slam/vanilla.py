@@ -16,6 +16,7 @@ import torch
 from .. import to_device
 from ..mapping.map_state import (MapState, from_map_dict, grow_map_state,
                                  init_map_state, map_dict, map_insert_frame)
+from ..utils import trace
 from ..utils.async_scalar import AsyncScalar
 
 
@@ -76,14 +77,19 @@ class VanillaMapper:
         while cap < self.max_capacity and self._count_ub > cap:
             cap = min(cap * 2, self.max_capacity)
         if cap != self.state.capacity:
-            self.state = grow_map_state(self.state, cap)
+            with trace.span("map_insert.grow"):
+                self.state = grow_map_state(self.state, cap)
+            trace.count("map_grows")
+            trace.gauge("map_capacity", cap)
 
     def post_insert(self) -> None:
         """After an insert: harvest the PREVIOUS async count, request this
         one. Never waits on the just-dispatched insert."""
         if self._count_req is not None:
             req, n = self._count_req
-            self._count_known = (req.get(), n)
+            with trace.wait("insert_count"):
+                self._count_known = (req.get(), n)
+            trace.gauge("map_live_points", self._count_known[0])
         self._n_inserts += 1
         self._count_req = (AsyncScalar(self.state.count), self._n_inserts)
 
@@ -106,22 +112,28 @@ class VanillaMapper:
         ar = 1 << (ub - 1).bit_length()
         if ar >= self.state.capacity:
             ar = None
+        trace.gauge("map_active_rows", ar or self.state.capacity)
         return dict(colors=colors, insert_match_th=self.match_distance_th,
                     k_pooling=self.k_pooling, downscale=ds, active_rows=ar)
 
     def map(self, frame_data: List[Any], c2w) -> None:
-        image, depth = frame_data[1], frame_data[2]
-        self._last_headroom = self._headroom(depth)
-        self._pre_insert_grow(depth)
-        dev = self.device
-        c2w = np.asarray(c2w, np.float32)
-        self.state = map_insert_frame(
-            self.state, to_device(image, dev),
-            to_device(depth, dev, torch.float32), to_device(c2w, dev),
-            self.cam_intrinsics, k_pooling=self.k_pooling,
-            downscale=self.downscale, match_th=self.match_distance_th,
-            w2c=to_device(np.linalg.inv(c2w).astype(np.float32), dev))
-        self.post_insert()
+        with trace.span("map_insert", frame_data[0]):
+            image, depth = frame_data[1], frame_data[2]
+            self._last_headroom = self._headroom(depth)
+            self._pre_insert_grow(depth)
+            dev = self.device
+            c2w = np.asarray(c2w, np.float32)
+            with trace.span("map_insert.upload"):
+                frame = (to_device(image, dev),
+                         to_device(depth, dev, torch.float32),
+                         to_device(c2w, dev))
+                w2c = to_device(np.linalg.inv(c2w).astype(np.float32), dev)
+            with trace.span("map_insert.dispatch"):
+                self.state = map_insert_frame(
+                    self.state, *frame, self.cam_intrinsics,
+                    k_pooling=self.k_pooling, downscale=self.downscale,
+                    match_th=self.match_distance_th, w2c=w2c)
+            self.post_insert()
 
     # -- accessors ------------------------------------------------------
     def get_map(self) -> MapState:

@@ -4,7 +4,11 @@
 Stats: frame_id, t_sam, t_obj, n_obj, n_matches, t_up, t_seg, t_clip,
 avg_fps, ram, vram, spf -- one ``<key>.log`` text file each under
 ``<output>/logger/``. ``vram`` is ``torch.cuda.memory_allocated`` of the
-run's device in GB (0 on the CPU).
+run's device in GB (0 on the CPU). Under ``semantic.log`` the mapper
+logs ``t_sam``, ``t_obj``, ``t_clip`` and ``t_up`` from its program spans
+(``utils/trace.py``): the keyframe's ``mask_source`` over the keyframes it
+segmented, ``association``, ``embedder`` less its ``embedder.update``, and
+``embedder.update``, in seconds.
 """
 from __future__ import annotations
 

@@ -11,7 +11,8 @@ package, on the CPU: SAM micro-batching (``sam.batch: 2``), ``restore_map``,
   - ``restore_dict(debug_info=True)`` both ways on the layout of
     ``tests/test_ckpt_interop.py``: capture, restore, capture again is equal
     across the packages;
-  - ``profile_trace`` writes a Chrome trace of the step window.
+  - ``profile_trace`` writes a Chrome trace of the step window, with the
+    program's spans and counters on a track of their own.
 """
 import copy
 import json
@@ -328,7 +329,9 @@ def test_debug_restore_bounded_heaps_and_orphans():
 # ---------------------------------------------------------------------------
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
-    cfg = make_config(16)
+    # maps every frame: the segment frames insert fused with the
+    # association, the others through the backbone's own map insert
+    cfg = make_config(16, map_every=1)
     cfg["profile_trace"] = str(tmp_path / "trace")
     cfg["profile_trace_steps"] = 2
     m = OVOSemMap(cfg, tmp_path / "out",
@@ -340,3 +343,13 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    # the program's spans and counters of the window on their own track
+    assert any(e.get("ph") == "M" and e.get("name") == "process_name"
+               and e["args"]["name"] == "ovo_tpu_torch" for e in events)
+    spans = {e["name"] for e in events
+             if e.get("pid") == "ovo_tpu_torch" and e.get("ph") == "X"}
+    assert {"step", "mask_source", "association", "embedder",
+            "map_insert"} <= spans
+    assert any(n.startswith("wait.") for n in spans)
+    assert any(e.get("pid") == "ovo_tpu_torch" and e.get("ph") == "C"
+               and e["name"] == "keyframes" for e in events)
