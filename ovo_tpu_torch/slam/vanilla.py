@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import to_device
+from ..mapping.insert_graph import CAPTURE, EAGER, InsertGraph, insert_key
 from ..mapping.map_state import (MapState, from_map_dict, grow_map_state,
                                  init_map_state, map_dict, map_insert_frame)
 from ..utils import trace
@@ -51,6 +52,9 @@ class VanillaMapper:
         self._count_req = None        # (AsyncScalar, n_inserts at request)
         self._count_known = (0, 0)    # (count, n_inserts it covers)
         self._last_headroom = 0
+        # the insert as a replayed CUDA graph (a CUDA map only)
+        self._graph = (InsertGraph(device) if device.type == "cuda"
+                       else None)
 
     # -- tracking -------------------------------------------------------
     def track_camera(self, frame_data: List[Any]) -> None:
@@ -117,22 +121,44 @@ class VanillaMapper:
                     k_pooling=self.k_pooling, downscale=ds, active_rows=ar)
 
     def map(self, frame_data: List[Any], c2w) -> None:
+        """Insert a frame. On a CUDA map the insert is replayed as one CUDA
+        graph where its key repeats (``mapping/insert_graph.py``)."""
         with trace.span("map_insert", frame_data[0]):
             image, depth = frame_data[1], frame_data[2]
             self._last_headroom = self._headroom(depth)
             self._pre_insert_grow(depth)
-            dev = self.device
             c2w = np.asarray(c2w, np.float32)
-            with trace.span("map_insert.upload"):
-                frame = (to_device(image, dev),
-                         to_device(depth, dev, torch.float32),
-                         to_device(c2w, dev))
-                w2c = to_device(np.linalg.inv(c2w).astype(np.float32), dev)
-            with trace.span("map_insert.dispatch"):
-                self.state = map_insert_frame(
-                    self.state, *frame, self.cam_intrinsics,
-                    k_pooling=self.k_pooling, downscale=self.downscale,
-                    match_th=self.match_distance_th, w2c=w2c)
+            w2c = np.linalg.inv(c2w).astype(np.float32)
+            kw = dict(k_pooling=self.k_pooling, downscale=self.downscale,
+                      match_th=self.match_distance_th)
+            g = self._graph
+            key = None if g is None else insert_key(
+                self.state, image, depth, self.cam_intrinsics, **kw)
+            action = EAGER if g is None else g.plan(key)
+            if action == EAGER:
+                if g is not None:
+                    trace.count("map_insert.eager")
+                dev = self.device
+                with trace.span("map_insert.upload"):
+                    frame = (to_device(image, dev),
+                             to_device(depth, dev, torch.float32),
+                             to_device(c2w, dev))
+                    w2c = to_device(w2c, dev)
+                with trace.span("map_insert.dispatch"):
+                    self.state = map_insert_frame(
+                        self.state, *frame, self.cam_intrinsics, w2c=w2c,
+                        **kw)
+            else:
+                with trace.span("map_insert.upload"):
+                    g.stage(self.state, image, depth, c2w, w2c)
+                if action == CAPTURE:
+                    with trace.span("map_insert.capture"):
+                        g.capture(key, map_insert_frame, self.state,
+                                  self.cam_intrinsics, **kw)
+                    trace.count("map_insert.graph_captures")
+                with trace.span("map_insert.dispatch"):
+                    self.state = g.replay()
+                trace.count("map_insert.graph_replays")
             self.post_insert()
 
     # -- accessors ------------------------------------------------------

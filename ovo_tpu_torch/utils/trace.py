@@ -23,12 +23,13 @@ stats: one record per name, so a long logged run holds bounded memory.
 Span names by layer (``README.md``, "profile_trace"): ``step``,
 ``loop.data_wait``, ``data.read``, ``backbone.track``, ``semantic_info``,
 ``logger.memory``, ``run.tail``; ``map_insert`` (``.grow``, ``.upload``,
-``.dispatch``); ``mask_source`` (``.upload``, ``.encode``, ``.decode``,
-``.select``, ``.box_nms``, ``.mask_nms``, ``.upsample``, ``.seg_map``,
-``.stack``, ``.small_regions``); ``association`` (``.grow``, ``.upload``,
-``.match``, ``.votes``, ``.tail``, ``.fused``, ``.sharded``); ``embedder``
-(``.gate``, ``.tower``, ``.pool``, ``.crops``, ``.merger``, ``.update``);
-waits ``wait.insert_count``, ``wait.has_mask``, ``wait.next_id``,
+``.capture``, ``.dispatch``); ``mask_source`` (``.upload``, ``.encode``,
+``.decode``, ``.select``, ``.box_nms``, ``.mask_nms``, ``.upsample``,
+``.seg_map``, ``.stack``, ``.small_regions``); ``association``
+(``.grow``, ``.upload``, ``.match``, ``.votes``, ``.tail``, ``.fused``,
+``.sharded``); ``embedder`` (``.gate``, ``.tower``, ``.pool``, ``.crops``,
+``.merger``, ``.update``); waits ``wait.insert_count``,
+``wait.insert_stage``, ``wait.has_mask``, ``wait.next_id``,
 ``wait.valid_any``, ``wait.keep_any``, ``wait.dropped``,
 ``wait.small_regions``, ``wait.log``, ``wait.debug``.
 """
